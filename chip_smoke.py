@@ -1,0 +1,571 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's pseudo-label main path on one CUDA card.
+
+    python3 chip_smoke.py [--batches N] [--profile DIR]
+
+Phases (each prints a line; any failure raises and exits non-zero):
+  1. device: refuse to run without CUDA; print the card's name and power
+     limit; fp32 checks run with TF32 off.
+  2. build: compile every CUDA kernel of mspl_tpu_torch/csrc with nvcc,
+     one process per source, all at once.
+  3. kernels: each kernel against its plain PyTorch version at the main
+     path's shapes (fp32 first, then bf16), then its time at batch 128
+     beside the plain version's, a library call's where one computes the
+     same function, and its bound on an H100 (memory at 3.35 TB/s, f32
+     arithmetic at 67 TFLOP/s, the larger of the two).
+  4. main path: three ESPNetv2-s2.0 sources in bf16 (CamVid 11, Cityscapes
+     19, Forest 5 classes; random weights from a seed) at 256x480, batch
+     128, through PseudoLabelGenerator (soft fusion, prob confidence,
+     kc = 0.5), then the CBST histograms and kc; every kernel's launch
+     count, img/s, a per-stage breakdown of one batch, and label agreement
+     with the same generator on the plain versions.
+The last line is {"ok": true, "device": {...}}; the line before it names
+the card, and the one before that lists every kernel as JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from mspl_tpu_torch.data.label_space import label_conversion_matrix
+from mspl_tpu_torch.data.loader import DataLoader
+from mspl_tpu_torch.models.espnetv2 import ESPNetv2Segmentation, init_random
+from mspl_tpu_torch.ops import _cuda, pseudo_cm, pyrpool, resize_x2
+from mspl_tpu_torch.pseudo import generate
+from mspl_tpu_torch.pseudo.cbst import (class_confidence_histograms,
+                                        kc_from_histograms)
+
+SOURCES = (("camvid", 11), ("cityscapes", 19), ("forest", 5))
+HW = (256, 480)
+BATCH = 128
+SCALES = (2.0, 1.5, 1.0, 0.5, 0.1)
+KC = 0.5
+MEM_BPS = 3.35e12   # H100 SXM device memory
+F32_OPS = 67e12     # H100 SXM f32 arithmetic outside the tensor cores
+BF16_ULP = 2.0 ** -7
+SEED = 0
+
+
+def proj_width(c: int) -> int:
+    return min(16, max(c // 2, 8))  # the model's pyramid-pool width, bp=16
+
+
+def bound(nbytes: float, ops: float):
+    t_b, t_o = nbytes / MEM_BPS * 1e3, ops / F32_OPS * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def time_ms(fn, reps: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_close(name, got, want, atol, rtol=0.0) -> float:
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    err = (got - want).abs()
+    lim = atol + rtol * want.abs()
+    if not torch.isfinite(got).all() or bool((err > lim).any()):
+        raise AssertionError(f"{name}: max |err| {err.max().item():.3g} "
+                             f"beyond atol {atol} rtol {rtol}")
+    return err.max().item()
+
+
+def phase_device() -> str:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
+                         "the port's main path needs a CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"phase 1 device: {smi} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}",
+          flush=True)
+    return smi
+
+
+def phase_build() -> None:
+    secs = _cuda.build_all()
+    regs = []
+    for name in _cuda.SOURCES:
+        log = (_cuda.BUILD / f"{name}.log")
+        text = log.read_text(errors="replace") if log.exists() else ""
+        used = [ln.split("Used", 1)[1].split(",")[0].strip()
+                for ln in text.splitlines() if "Used" in ln]
+        regs.append(f"{name}: {'; '.join(used) or 'cached'}")
+    print(f"phase 2 build: {secs:.1f} s for {len(_cuda.SOURCES)} sources "
+          f"(nvcc sm_90a, in parallel) | {' | '.join(regs)}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _rand(gen, shape, sd=1.0, dtype=torch.float32):
+    return (torch.randn(shape, generator=gen, device="cuda") * sd).to(dtype)
+
+
+def _affine(gen, n):
+    u = lambda: torch.rand(n, generator=gen, device="cuda")  # noqa: E731
+    return torch.stack([u() + 0.5, torch.randn(n, generator=gen,
+                                               device="cuda") * 0.1,
+                        u() * 0.5])
+
+
+def pseudo_calls(b, dtype, gen):
+    logits = [_rand(gen, (b, c, *HW), 2.0, dtype) for _, c in SOURCES]
+    return [(logits,)]
+
+
+def _pseudo_decided(logits, convs, mode, kc, conf, lbl_plain):
+    """Pixels whose label no rounding can flip: top-2 margin of the fused
+    (soft) or every per-model (hard) distribution above 1e-5, and the
+    confidence more than 1e-5 away from its threshold."""
+    qs = []
+    for x, c in zip(logits, convs):
+        p = torch.softmax(x.float(), dim=1)
+        qs.append(torch.einsum("bchw,ct->bthw", p,
+                               torch.from_numpy(c).cuda()))
+    t = convs[0].shape[1] - 1
+    if mode == "soft":
+        top2 = torch.topk(sum(qs)[:, :t] / len(qs), 2, dim=1).values
+        margin = top2[:, 0] - top2[:, 1]
+    else:
+        margin = torch.stack([
+            (lambda v: v[:, 0] - v[:, 1])(torch.topk(q, 2, dim=1).values)
+            for q in qs]).amin(0)
+    thr = torch.where(lbl_plain == 255, 0.0, kc)
+    return (margin > 1e-5) & ((conf - thr).abs() > 1e-5)
+
+
+def check_pseudo(gen):
+    convs = [label_conversion_matrix(n) for n, _ in SOURCES]
+    kc = torch.full((3,), KC, device="cuda")
+    errs = {}
+    for dtype, combos in ((torch.float32, [("soft", "prob"), ("soft", "entropy"),
+                                           ("hard", "prob"), ("hard", "entropy")]),
+                          (torch.bfloat16, [("soft", "prob")])):
+        (logits,), = pseudo_calls(8, dtype, gen)
+        for mode, conf_mode in combos:
+            got_l, got_c = pseudo_cm.fused_pseudo_cm(
+                logits, convs, kc, mode=mode, conf_mode=conf_mode)
+            want_l, want_c = pseudo_cm.fused_pseudo_cm_plain(
+                logits, convs, kc, mode=mode, conf_mode=conf_mode)
+            tag = f"fused_pseudo_cm {mode}/{conf_mode} {dtype}"
+            err = check_close(tag, got_c, want_c, atol=1e-5)
+            decided = _pseudo_decided(logits, convs, mode, KC, want_c, want_l)
+            bad = int(((got_l != want_l) & decided).sum())
+            if bad or decided.float().mean() < 0.99:
+                raise AssertionError(f"{tag}: {bad} decided labels differ "
+                                     f"({decided.float().mean():.4f} decided)")
+            errs[dtype] = max(errs.get(dtype, 0.0), err)
+    return errs
+
+
+def branch_calls(b, dtype, gen):
+    calls = []
+    for _, c in SOURCES:
+        p = proj_width(c)
+        for h, w in ((16, 30), (32, 60), (64, 120)):
+            calls.append((_rand(gen, (b, p, h, w), 1.0, dtype),
+                          _rand(gen, (5, 3, 3, p), 0.5), SCALES))
+    return calls
+
+
+def tail_calls(b, dtype, gen):
+    calls = []
+    for _, c in SOURCES:
+        p, s_n = proj_width(c), len(SCALES)
+        calls.append((_rand(gen, (b, p, 128, 240), 1.0, dtype),
+                      _rand(gen, (s_n, 3, 3, p), 0.5), _affine(gen, s_n * p),
+                      _rand(gen, (3, 3, s_n, p), 0.3), _affine(gen, p),
+                      _rand(gen, (p, c), 0.5), _rand(gen, (c,), 0.1),
+                      torch.tensor([[1.0], [0.0], [1.0]]).repeat(1, c).cuda(),
+                      SCALES))
+    return calls
+
+
+def resize_calls(b, dtype, gen):
+    return [(_rand(gen, (b, c, 128, 240), 3.0, dtype), HW, True)
+            for _, c in SOURCES]
+
+
+def check_elementwise(kernel, plain, make_calls, gen, atol32, name):
+    """fp32 within atol32, bf16 within one bf16 rounding of the plain
+    version (both compute in f32 and round once)."""
+    err16 = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for args in make_calls(8, dtype, gen):
+            got, want = kernel(*args), plain(*args)
+            if dtype == torch.float32:
+                check_close(f"{name} fp32", got, want, atol=atol32)
+            else:
+                err16 = max(err16, check_close(f"{name} bf16", got, want,
+                                               atol=1e-3, rtol=BF16_ULP))
+    return err16
+
+
+# --- operation and byte counts of one main-path batch (batch 128, bf16) ---
+
+def pseudo_work(calls):
+    (logits,), = calls
+    b, _, h, w = logits[0].shape
+    px, t, n = b * h * w, 3, len(logits)
+    c_sum = sum(x.shape[1] for x in logits)
+    nbytes = sum(x.numel() * x.element_size() for x in logits) + px * 8
+    ops = px * (6 * c_sum + n * (t + 2) + 3 * t + 10)
+    return nbytes, ops
+
+
+def _branch_ops(b, p, h, w):
+    ops = 0
+    for (hs, ws), s in zip(pyrpool.branch_sizes(h, w, SCALES), SCALES):
+        if s == 1.0:
+            ops += 17 * h * w
+            continue
+        to = 9 * hs * ws if s > 1.0 else h * w + hs * ws
+        ops += to + 17 * hs * ws + 9 * h * w
+    return b * p * ops
+
+
+def branch_work(calls):
+    nbytes = ops = 0
+    for x, wts, _ in calls:
+        b, p, h, w = x.shape
+        nbytes += x.numel() * x.element_size() * (1 + len(SCALES))
+        nbytes += wts.numel() * 4
+        ops += _branch_ops(b, p, h, w)
+    return nbytes, ops
+
+
+def tail_work(calls):
+    nbytes = ops = 0
+    for args in calls:
+        x, o = args[0], args[5].shape[1]
+        b, p, h, w = x.shape
+        s_n = len(SCALES)
+        nbytes += x.numel() * x.element_size() * (1 + o / p)
+        nbytes += sum(t.numel() * 4 for t in args[1:8])
+        ops += _branch_ops(b, p, h, w) + b * h * w * (
+            24 * s_n * p + 6 * p + 2 * p * o + 7 * o)
+    return nbytes, ops
+
+
+def resize_work(calls):
+    nbytes = ops = 0
+    for x, (ho, wo), _ in calls:
+        b, c = x.shape[:2]
+        nbytes += x.numel() * x.element_size() + b * c * ho * wo * 2
+        ops += 9 * b * c * ho * wo
+    return nbytes, ops
+
+
+def phase_kernels():
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    err16 = {}
+    errs = check_pseudo(gen)
+    err16["fused_pseudo_cm"] = errs[torch.bfloat16]
+    err16["pyr_branches"] = check_elementwise(
+        pyrpool.pyr_branches, pyrpool.pyr_branches_plain, branch_calls, gen,
+        1e-4, "pyr_branches")
+    err16["pyr_pool_fused_eval"] = check_elementwise(
+        pyrpool.pyr_pool_fused_eval, pyrpool.pyr_pool_fused_eval_plain,
+        tail_calls, gen, 1e-4, "pyr_pool_fused_eval")
+    err16["resize_x2_cm"] = check_elementwise(
+        resize_x2.resize_x2_cm, resize_x2.resize_x2_cm_plain, resize_calls,
+        gen, 1e-5, "resize_x2_cm")
+    print("phase 3 kernels vs plain at batch 8: fp32 within atol (pseudo "
+          "1e-5 and labels equal where decided, branches/tail 1e-4, resize "
+          "1e-5), bf16 within one bf16 rounding | bf16 max |err| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in err16.items()), flush=True)
+
+    convs = [label_conversion_matrix(n) for n, _ in SOURCES]
+    kc = torch.full((3,), KC, device="cuda")
+
+    def interp(x, size, ac):
+        return F.interpolate(x, size=size, mode="bilinear", align_corners=ac)
+
+    table = [
+        ("fused_pseudo_cm", "mspl_tpu_torch/csrc/pseudo_cm.cu",
+         "mspl_tpu/ops/pallas_pseudo_cm.py:184", pseudo_calls, pseudo_work,
+         lambda lg: pseudo_cm.fused_pseudo_cm(lg, convs, kc),
+         lambda lg: pseudo_cm.fused_pseudo_cm_plain(lg, convs, kc), None),
+        ("pyr_pool_fused_eval", "mspl_tpu_torch/csrc/pyrpool.cu",
+         "mspl_tpu/ops/pallas_pyrpool.py:890", tail_calls, tail_work,
+         pyrpool.pyr_pool_fused_eval, pyrpool.pyr_pool_fused_eval_plain,
+         None),
+        ("pyr_branches", "mspl_tpu_torch/csrc/pyrpool.cu",
+         "mspl_tpu/ops/pallas_pyrpool.py:1224", branch_calls, branch_work,
+         pyrpool.pyr_branches, pyrpool.pyr_branches_plain, None),
+        ("resize_x2_cm", "mspl_tpu_torch/csrc/resize_x2.cu",
+         "mspl_tpu/ops/pallas_resize.py:53", resize_calls, resize_work,
+         resize_x2.resize_x2_cm, resize_x2.resize_x2_cm_plain, interp),
+    ]
+    rows = []
+    for name, src, replaces, make_calls, work, kern, plain, lib in table:
+        calls = make_calls(BATCH, torch.bfloat16, gen)
+        run = lambda f: (lambda: [f(*a) for a in calls])  # noqa: E731
+        k_ms, p_ms = time_ms(run(kern)), time_ms(run(plain))
+        k_ms = min(k_ms, time_ms(run(kern)))
+        l_ms = None if lib is None else time_ms(run(lib))
+        b_ms, b_by = bound(*work(calls))
+        rows.append(dict(name=name, route="cuda", source=src,
+                         replaces=replaces, launches=0,
+                         max_abs_err=err16[name], ms=k_ms, plain_ms=p_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+                         calls_per_batch=len(calls)))
+        print(f"phase 3 time {name} (batch {BATCH}, bf16, {len(calls)} "
+              f"calls per main-path batch): kernel {k_ms:.3f} ms, plain "
+              f"{p_ms:.3f} ms, library {l_ms if l_ms is None else round(l_ms, 3)} "
+              f"ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path at full width
+# ---------------------------------------------------------------------------
+
+class SyntheticImages:
+    """`n` uint8 target images served by `load_batch` from a pool of
+    distinct images made in bulk from a seed (labels are unused)."""
+
+    def __init__(self, n: int, images: np.ndarray):
+        self.n, self.images = n, images
+        self.labels = np.zeros((BATCH, *HW), np.int32)
+
+    def __len__(self):
+        return self.n
+
+    def load_batch(self, indices):
+        return (self.images[np.asarray(indices) % len(self.images)],
+                self.labels[: len(indices)])
+
+
+COUNTERS = {
+    "fused_pseudo_cm": pseudo_cm.fused_pseudo_cm,
+    "pyr_pool_fused_eval": pyrpool.pyr_pool_fused_eval,
+    "pyr_branches": pyrpool.pyr_branches,
+    "resize_x2_cm": resize_x2.resize_x2_cm,
+}
+PER_BATCH = {"fused_pseudo_cm": 1, "pyr_pool_fused_eval": 3,
+             "pyr_branches": 9, "resize_x2_cm": 3}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the model and the engine through the plain versions by name."""
+    import mspl_tpu_torch.layers.pyramid_pool as pp
+    import mspl_tpu_torch.models.espnetv2 as me
+
+    saved = (pp.pyr_branches, pp.pyr_pool_fused_eval, me.resize_x2_cm,
+             generate.fused_pseudo_cm)
+    pp.pyr_branches = pyrpool.pyr_branches_plain
+    pp.pyr_pool_fused_eval = pyrpool.pyr_pool_fused_eval_plain
+    me.resize_x2_cm = resize_x2.resize_x2_cm_plain
+    generate.fused_pseudo_cm = pseudo_cm.fused_pseudo_cm_plain
+    try:
+        yield
+    finally:
+        (pp.pyr_branches, pp.pyr_pool_fused_eval, me.resize_x2_cm,
+         generate.fused_pseudo_cm) = saved
+
+
+def breakdown(gen, imgs_u8):
+    """CUDA-event times of one batch's stages (ms)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    with torch.inference_mode():
+        ev[0].record()
+        x = gen.normalize_fn(imgs_u8).to(gen.common_dtype)
+        ev[1].record()
+        logits = []
+        for i, s in enumerate(gen.sources):
+            logits.append(s(x))
+            ev[2 + i].record()
+        pseudo_cm.fused_pseudo_cm(logits, gen.conversions, gen.kc)
+        ev[5].record()
+    ev[5].synchronize()
+    names = ["normalize"] + [f"forward {s.name}" for s in gen.sources] + [
+        "fused pass"]
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+
+def profile_sweep(sweep, n_images: int, out_dir: str) -> None:
+    """torch.profiler over one sweep of `n_images`: the device's busy and
+    idle share of the wall, the idle gaps over 0.3 ms with the host
+    operations that overlap them, and the kernels that take the most device
+    time; the full kernel table and a chrome trace go to `out_dir`."""
+    import os
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sweep(n_images)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    dev_ms = lambda e: e.self_device_time_total / 1e3  # noqa: E731
+    busy = sum(dev_ms(e) for e in kernels)
+    kernels.sort(key=dev_ms, reverse=True)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "profile.txt"), "w") as f:
+        for e in kernels:
+            f.write(f"{dev_ms(e):10.3f} ms {e.count:6d}x  {e.key}\n")
+    trace = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    gaps, end = [], spans[0][1]
+    for a, b in spans[1:]:
+        if a - end > 300:  # microseconds
+            gaps.append((end, a))
+        end = max(end, b)
+    host = [e for e in events if e.get("cat") in ("cpu_op", "cuda_runtime")
+            and e.get("dur", 0) > 200]
+    lines = []
+    for a, b in sorted(gaps, key=lambda g: g[0] - g[1])[:5]:
+        over = Counter()
+        for e in host:
+            lo, hi = max(e["ts"], a), min(e["ts"] + e["dur"], b)
+            if hi > lo:
+                over[e["name"][:40]] += (hi - lo) / 1e3
+        lines.append(f"{(b - a) / 1e3:.2f} ms at +{(a - spans[0][0]) / 1e3:.1f}"
+                     " ms (" + ", ".join(f"{n} {v:.1f}" for n, v in
+                                         over.most_common(3)) + ")")
+    print(f"phase 4 profile of a {n_images}-image sweep: wall {wall_ms:.2f} "
+          f"ms, device busy {busy:.2f} ms ({busy / wall_ms:.3f} of wall, idle "
+          f"{1 - busy / wall_ms:.3f}); largest idle gaps: "
+          + ("; ".join(lines) or "none"), flush=True)
+    print("phase 4 profile top kernels: " + "; ".join(
+        f"{dev_ms(e):.2f} ms {e.count}x {e.key[:70]}" for e in kernels[:15]),
+        flush=True)
+
+
+def phase_main_path(n_batches: int, smi: str, profile_dir=None):
+    g = torch.Generator().manual_seed(SEED)
+    sources = []
+    for name, c in SOURCES:
+        model = init_random(ESPNetv2Segmentation(
+            c, s=2.0, compute_dtype=torch.bfloat16), g)
+        sources.append(generate.make_source(name, model, None, name,
+                                            channel_major=True,
+                                            device="cuda"))
+    gen = generate.PseudoLabelGenerator(
+        sources, mode="soft", kc=np.full(3, KC, np.float32),
+        conf_mode="prob", device="cuda")
+    pool = np.random.default_rng(SEED).integers(
+        0, 256, (2 * BATCH, *HW, 3), dtype=np.uint8)
+    n_images = BATCH * n_batches
+
+    def sweep(n):
+        loader = DataLoader(SyntheticImages(n, pool), batch_size=BATCH,
+                            num_workers=2)
+        labels, confs, _ = gen(loader, return_device=True)
+        hist = class_confidence_histograms(labels, confs, 3)
+        return labels, confs, hist, kc_from_histograms(hist, 0.5)
+
+    # warm-up: cuDNN plans, allocators (two pinned batches: the lookahead),
+    # kernel libraries
+    sweep(2 * BATCH)
+    torch.cuda.synchronize()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    labels, confs, hist, kc_next = sweep(n_images)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in COUNTERS.items()}
+    for k, per in PER_BATCH.items():
+        if launches[k] != per * n_batches:
+            raise AssertionError(f"{k}: {launches[k]} launches in "
+                                 f"{n_batches} batches, expected {per} each")
+    imgs_per_s = n_images / secs
+
+    if labels.shape != (n_images, *HW) or labels.dtype != torch.uint8:
+        raise AssertionError(f"labels {tuple(labels.shape)} {labels.dtype}")
+    values = set(torch.unique(labels).tolist())
+    if not values <= {0, 1, 2, 255}:
+        raise AssertionError(f"label values {sorted(values)}")
+    if not torch.isfinite(confs).all() or confs.min() < -1e-6 \
+            or confs.max() > 1 + 1e-6:
+        raise AssertionError("confidences not finite in [0, 1]")
+    kept = int((labels != 255).sum())
+    if int(hist.sum()) != kept:
+        raise AssertionError(f"histogram holds {int(hist.sum())} of {kept}")
+    print(f"phase 4 main path: {n_batches} batches of {BATCH} at "
+          f"{HW[0]}x{HW[1]}, 3 ESPNetv2-s2.0 sources bf16 -> "
+          f"{imgs_per_s:.2f} img/s ({secs:.3f} s, host clock, sweep + "
+          f"histograms + kc) on {smi} | launches {json.dumps(launches)} | "
+          f"kept {kept / labels.numel():.4f} | next kc {kc_next.tolist()}",
+          flush=True)
+    del labels, confs
+
+    imgs = torch.from_numpy(pool[:BATCH]).cuda()
+    for _ in range(3):  # the last of three, after two warm ones
+        stages = breakdown(gen, imgs)
+    print("phase 4 one batch by stage (ms, CUDA events): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()), flush=True)
+
+    lab_k, conf_k = gen.batch_pass(imgs)
+    with plain_kernels():
+        lab_p, conf_p = gen.batch_pass(imgs)
+    agree = (lab_k == lab_p).float().mean().item()
+    dconf = (conf_k - conf_p).abs().max().item()
+    if agree < 0.995:
+        raise AssertionError(f"kernel vs plain label agreement {agree:.5f}")
+    print(f"phase 4 kernels vs plain versions over one batch: label "
+          f"agreement {agree:.6f}, max |conf err| {dconf:.3g}", flush=True)
+    if profile_dir:
+        profile_sweep(sweep, n_images, profile_dir)
+    return launches, imgs_per_s
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batches", type=int, default=8,
+                    help="timed main-path batches of 128 (default 8)")
+    ap.add_argument("--profile", metavar="DIR",
+                    help="also profile one main-path sweep into DIR")
+    args = ap.parse_args()
+    smi = phase_device()
+    phase_build()
+    rows = phase_kernels()
+    launches, _ = phase_main_path(args.batches, smi, args.profile)
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(f"card: {smi}", flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

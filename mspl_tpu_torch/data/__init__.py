@@ -1,0 +1,1 @@
+"""data of the PyTorch port (see mspl_tpu_torch/__init__.py)."""
