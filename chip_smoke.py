@@ -12,13 +12,22 @@ Phases (each prints a line; any failure raises and exits non-zero):
      path's shapes (fp32 first, then bf16), then its time at batch 128
      beside the plain version's, a library call's where one computes the
      same function, and its bound on an H100 (memory at 3.35 TB/s, f32
-     arithmetic at 67 TFLOP/s, the larger of the two).
+     arithmetic at 67 TFLOP/s, matrix products at the bf16 tensor-core
+     989 TFLOP/s; the largest of the three).
   4. main path: three ESPNetv2-s2.0 sources in bf16 (CamVid 11, Cityscapes
      19, Forest 5 classes; random weights from a seed) at 256x480, batch
      128, through PseudoLabelGenerator (soft fusion, prob confidence,
      kc = 0.5), then the CBST histograms and kc; every kernel's launch
-     count, img/s, a per-stage breakdown of one batch, and label agreement
-     with the same generator on the plain versions.
+     count (0 for the encoder kernels and the pixel-major pass), img/s, a
+     per-stage breakdown of one batch, and label agreement with the same
+     generator on the plain versions.
+  5. routes: the same sources and weights through the three other kernel
+     routes at full width, each a timed sweep: the models with
+     `use_pallas=True` (EESP branch kernel), with `fuse_stages=True`
+     (fused-stage kernel), and NHWC sources with a `use_pallas=True`
+     generator (pixel-major pass); img/s, a per-stage breakdown, the
+     launch counts, and label agreement with the same generator on the
+     plain versions and with the default route.
 The last line is {"ok": true, "device": {...}}; the line before it names
 the card, and the one before that lists every kernel as JSON.
 """
@@ -28,6 +37,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import subprocess
 import time
 
@@ -37,8 +47,10 @@ import torch.nn.functional as F
 
 from mspl_tpu_torch.data.label_space import label_conversion_matrix
 from mspl_tpu_torch.data.loader import DataLoader
+from mspl_tpu_torch.layers.eesp import EESP, branch_dilations
 from mspl_tpu_torch.models.espnetv2 import ESPNetv2Segmentation, init_random
-from mspl_tpu_torch.ops import _cuda, pseudo_cm, pyrpool, resize_x2
+from mspl_tpu_torch.ops import (_cuda, eesp_branches, eesp_stage, pseudo,
+                                pseudo_cm, pyrpool, resize_x2)
 from mspl_tpu_torch.pseudo import generate
 from mspl_tpu_torch.pseudo.cbst import (class_confidence_histograms,
                                         kc_from_histograms)
@@ -50,7 +62,12 @@ SCALES = (2.0, 1.5, 1.0, 0.5, 0.1)
 KC = 0.5
 MEM_BPS = 3.35e12   # H100 SXM device memory
 F32_OPS = 67e12     # H100 SXM f32 arithmetic outside the tensor cores
+BF16_TC = 989e12    # H100 SXM dense bf16 tensor-core products
 BF16_ULP = 2.0 ** -7
+# the EESP units of one source: (C, r_lim, units, H, W) at 256x480
+STAGES = ((256, 9, 3, 32, 60), (512, 7, 7, 16, 30))
+# the DownSampler fronts of one source: (nin, n, H, W), dilations 1..4
+FRONTS = ((32, 24, 128, 240), (128, 32, 64, 120), (256, 64, 32, 60))
 SEED = 0
 
 
@@ -58,9 +75,14 @@ def proj_width(c: int) -> int:
     return min(16, max(c // 2, 8))  # the model's pyramid-pool width, bp=16
 
 
-def bound(nbytes: float, ops: float):
-    t_b, t_o = nbytes / MEM_BPS * 1e3, ops / F32_OPS * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+def bound(nbytes: float, ops: float, tc_ops: float = 0.0):
+    """(ms, "bytes" or "operations", the limiting term): the largest of
+    bytes at the memory rate, f32 work at the f32 rate, and matrix-product
+    work at the bf16 tensor-core rate."""
+    terms = [(nbytes / MEM_BPS * 1e3, "bytes", "bytes"),
+             (ops / F32_OPS * 1e3, "operations", "f32 operations"),
+             (tc_ops / BF16_TC * 1e3, "operations", "bf16 products")]
+    return max(terms, key=lambda t: t[0])
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -113,7 +135,11 @@ def phase_build() -> None:
         text = log.read_text(errors="replace") if log.exists() else ""
         used = [ln.split("Used", 1)[1].split(",")[0].strip()
                 for ln in text.splitlines() if "Used" in ln]
-        regs.append(f"{name}: {'; '.join(used) or 'cached'}")
+        stack = [int(ln.split("bytes stack frame")[0].split()[-1])
+                 for ln in text.splitlines() if "bytes stack frame" in ln]
+        regs.append(f"{name}: {'; '.join(used) or 'cached'}"
+                    + (f" (stack frame up to {max(stack)} bytes)"
+                       if stack else ""))
     print(f"phase 2 build: {secs:.1f} s for {len(_cuda.SOURCES)} sources "
           f"(nvcc sm_90a, in parallel) | {' | '.join(regs)}", flush=True)
 
@@ -211,18 +237,175 @@ def resize_calls(b, dtype, gen):
             for _, c in SOURCES]
 
 
-def check_elementwise(kernel, plain, make_calls, gen, atol32, name):
-    """fp32 within atol32, bf16 within one bf16 rounding of the plain
-    version (both compute in f32 and round once)."""
+def check_elementwise(kernel, plain, make_calls, gen, atol32, name,
+                      rtol32=0.0):
+    """fp32 within atol32 (+ rtol32), bf16 within one bf16 rounding of the
+    plain version (both compute in f32 and round once)."""
     err16 = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for args in make_calls(8, dtype, gen):
             got, want = kernel(*args), plain(*args)
             if dtype == torch.float32:
-                check_close(f"{name} fp32", got, want, atol=atol32)
+                check_close(f"{name} fp32", got, want, atol=atol32,
+                            rtol=rtol32)
             else:
                 err16 = max(err16, check_close(f"{name} bf16", got, want,
                                                atol=1e-3, rtol=BF16_ULP))
+    return err16
+
+
+def _flat_outputs(fn):
+    """One tensor of a function's outputs, for the elementwise check."""
+    return lambda *a: torch.cat([t.reshape(-1) for t in fn(*a)])
+
+
+# --- the encoder kernels and the pixel-major pass at the main path's shapes
+
+def _he_taps(gen, k, n):
+    return _rand(gen, (k, 3, 3, n), (2.0 / 9.0) ** 0.5)
+
+
+def eesp_calls(b, dtype, gen):
+    """The 10 stride-1 EESP branch stacks of each source: proj [B, n, H, W]
+    with n = C / 4, taps [4, 3, 3, n], the unit's dilations."""
+    calls = []
+    for _ in SOURCES:
+        for c, r_lim, units, h, w in STAGES:
+            d = branch_dilations(4, r_lim)
+            for _ in range(units):
+                calls.append((_rand(gen, (b, c // 4, h, w), 1.0, dtype),
+                              _he_taps(gen, 4, c // 4), d))
+    return calls
+
+
+def front_calls(b, dtype, gen):
+    """The 3 DownSampler fronts of each source: x, proj, taps, dilations."""
+    return [(_rand(gen, (b, nin, h, w), 1.0, dtype),
+             _rand(gen, (b, n, h, w), 1.0, dtype), _he_taps(gen, 4, n),
+             (1, 2, 3, 4))
+            for _ in SOURCES for nin, n, h, w in FRONTS]
+
+
+_stage_params_cache = {}
+
+
+def stage_units(source: int):
+    """Eval EESP units of one source at full width (random weights from a
+    seed, BatchNorm statistics perturbed), folded once per source."""
+    hit = _stage_params_cache.get(source)
+    if hit is None:
+        g = torch.Generator().manual_seed(SEED + 100 + source)
+        hit = []
+        for c, r_lim, units, _, _ in STAGES:
+            mods = [init_random(EESP(c, c, k=4, r_lim=r_lim), g).eval()
+                    for _ in range(units)]
+            with torch.no_grad():
+                for m in mods:
+                    for name, buf in m.named_buffers():
+                        if name.endswith("running_mean"):
+                            buf.copy_(torch.randn(buf.shape, generator=g)
+                                      * 0.3)
+                        elif name.endswith("running_var"):
+                            buf.copy_(torch.rand(buf.shape, generator=g)
+                                      + 0.5)
+            hit.append([eesp_stage.eesp_block_params(m.cuda())
+                        for m in mods])
+        _stage_params_cache[source] = hit
+    return hit
+
+
+def dense_stage_calls(b, dtype, gen):
+    """A 2-unit K=3 chain [B, 24, 16, 24] whose expand is dense (n = 8 is
+    not a multiple of K, so the units are not grouped): the kernel's
+    dense-expand path, which ESPNetv2's K=4 stages never take."""
+    hit = _stage_params_cache.get("dense")
+    if hit is None:
+        g = torch.Generator().manual_seed(SEED + 200)
+        mods = [init_random(EESP(24, 24, k=3, r_lim=7), g).eval()
+                for _ in range(2)]
+        hit = [eesp_stage.eesp_block_params(m.cuda()) for m in mods]
+        if hit[0]["ew"].dim() != 2:
+            raise AssertionError("the K=3 chain should have a dense expand")
+        _stage_params_cache["dense"] = hit
+    return [(_rand(gen, (b, 24, 16, 24), 1.0, dtype), hit,
+             branch_dilations(3, 7))]
+
+
+def stage_calls(b, dtype, gen):
+    """The 2 stride-1 stages of each source: x [B, C, H, W], the units'
+    folded arrays, the stage's dilations."""
+    calls = []
+    for si in range(len(SOURCES)):
+        for (c, r_lim, _, h, w), blocks in zip(STAGES, stage_units(si)):
+            calls.append((_rand(gen, (b, c, h, w), 1.0, dtype), blocks,
+                          branch_dilations(4, r_lim)))
+    return calls
+
+
+def check_stage(gen):
+    """fp32 within the CPU tests' 5e-4 (rtol, and atol at the output's
+    scale: random weights grow the activations through the residual chain,
+    and the f32 ulp of a value in the hundreds is already ~1e-5, summed
+    over products of hundreds of terms); bf16: both sides round the proj
+    output and each unit's output once and sum in f32 in other orders, so a
+    value near a rounding tie can land one bf16 ulp apart, and each unit
+    passes such a difference on through its residual: after U units an
+    output may differ by about U ulps.  The check allows (U + 1) ulps of
+    |want| plus (U + 1) ulps of the output's rms.  The main path's stages
+    come with a small dense-expand chain.  Returns the largest bf16 error
+    and the largest output rms."""
+    err16 = top_rms = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for x, blocks, d in (stage_calls(8, dtype, gen)
+                             + dense_stage_calls(8, dtype, gen)):
+            got = eesp_stage.eesp_stage_fused_eval(x, blocks, d)
+            want = eesp_stage.eesp_stage_fused_eval_plain(x, blocks, d)
+            rms = want.float().pow(2).mean().sqrt().item()
+            top_rms = max(top_rms, rms)
+            if dtype == torch.float32:
+                check_close("eesp_stage fp32", got, want,
+                            atol=5e-4 * max(1.0, rms), rtol=5e-4)
+                continue
+            tol = (len(blocks) + 1) * BF16_ULP
+            err16 = max(err16, check_close("eesp_stage bf16", got, want,
+                                           atol=tol * rms, rtol=tol))
+    return err16, top_rms
+
+
+def pm_calls(b, dtype, gen):
+    return [([_rand(gen, (b, *HW, c), 2.0, dtype) for _, c in SOURCES],)]
+
+
+def check_pm(gen):
+    """The pixel-major pass against its plain version: confidences within
+    1e-5, labels equal where no rounding can flip them."""
+    convs = [label_conversion_matrix(n) for n, _ in SOURCES]
+    kc = torch.full((3,), KC, device="cuda")
+    err16 = 0.0
+    for dtype, combos in ((torch.float32, [("soft", "prob", kc),
+                                           ("soft", "entropy", kc),
+                                           ("hard", "prob", kc),
+                                           ("hard", "entropy", kc),
+                                           ("soft", "prob", None)]),
+                          (torch.bfloat16, [("soft", "prob", kc)])):
+        (logits,), = pm_calls(8, dtype, gen)
+        for mode, conf_mode, k in combos:
+            got_l, got_c = pseudo.fused_pseudo_pass_pm(
+                logits, convs, mode=mode, kc=k, conf_mode=conf_mode)
+            want_l, want_c = pseudo.fused_pseudo_pass_plain(
+                logits, convs, mode=mode, kc=k, conf_mode=conf_mode)
+            tag = (f"fused_pseudo_pass_pm {mode}/{conf_mode}"
+                   f"{'' if k is not None else '/no kc'} {dtype}")
+            err = check_close(tag, got_c, want_c, atol=1e-5)
+            decided = _pseudo_decided([x.permute(0, 3, 1, 2) for x in logits],
+                                      convs, mode, KC if k is not None
+                                      else 0.0, want_c, want_l)
+            bad = int(((got_l != want_l) & decided).sum())
+            if bad or decided.float().mean() < 0.99:
+                raise AssertionError(f"{tag}: {bad} decided labels differ "
+                                     f"({decided.float().mean():.4f} decided)")
+            if dtype == torch.bfloat16:
+                err16 = max(err16, err)
     return err16
 
 
@@ -281,6 +464,51 @@ def resize_work(calls):
     return nbytes, ops
 
 
+def eesp_work(calls):
+    nbytes = ops = 0
+    for x, wts, d in calls:
+        nbytes += x.numel() * x.element_size() * (1 + len(d)) + wts.numel() * 4
+        ops += 19 * len(d) * x.numel()  # 9 multiply-adds + 1 HFF add
+    return nbytes, ops
+
+
+def front_work(calls):
+    nbytes = ops = 0
+    for x, proj, wts, d in calls:
+        b, nin, h, w = x.shape
+        n, k = proj.shape[1], len(d)
+        h2, w2 = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+        nbytes += (x.numel() + proj.numel() + b * (nin + k * n) * h2 * w2
+                   ) * x.element_size() + wts.numel() * 4
+        ops += b * h2 * w2 * (19 * k * n + 9 * nin)
+    return nbytes, ops
+
+
+def stage_work(calls):
+    """Bytes: each stage's input read and output written once, plus the
+    folded parameters.  Products (tensor-core work): the grouped proj and
+    expand 1x1s.  f32 work per pixel and unit: taps and HFF 19C, proj bias
+    + PReLU 4n, BR affine + PReLU 5C, expand bias + residual + PReLU 6C."""
+    nbytes = ops = tc = 0
+    for x, blocks, d in calls:
+        b, c, h, w = x.shape
+        px, n = b * h * w, c // len(d)
+        nbytes += 2 * x.numel() * x.element_size()
+        for blk in blocks:
+            nbytes += sum(blk[a].numel() * 4 for a in (
+                "pw", "paff", "taps", "cataff", "ew", "eaff", "alpha"))
+            macs = n * c // blk["g_proj"] + (
+                c * n if blk["ew"].dim() == 3 else c * c)
+            tc += 2 * px * macs
+            ops += px * (30 * c + 4 * n)
+    return nbytes, ops, tc
+
+
+def pm_work(calls):
+    (logits,), = calls
+    return pseudo_work([([x.permute(0, 3, 1, 2) for x in logits],)])
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     err16 = {}
@@ -295,9 +523,21 @@ def phase_kernels():
     err16["resize_x2_cm"] = check_elementwise(
         resize_x2.resize_x2_cm, resize_x2.resize_x2_cm_plain, resize_calls,
         gen, 1e-5, "resize_x2_cm")
+    err16["eesp_branches"] = check_elementwise(
+        eesp_branches.eesp_branches, eesp_branches.eesp_branches_plain,
+        eesp_calls, gen, 1e-5, "eesp_branches", rtol32=1e-5)
+    err16["down_front"] = check_elementwise(
+        _flat_outputs(eesp_branches.down_front),
+        _flat_outputs(eesp_branches.down_front_plain), front_calls, gen,
+        1e-5, "down_front", rtol32=1e-5)
+    err16["eesp_stage_fused_eval"], stage_rms = check_stage(gen)
+    err16["fused_pseudo_pass_pm"] = check_pm(gen)
     print("phase 3 kernels vs plain at batch 8: fp32 within atol (pseudo "
-          "1e-5 and labels equal where decided, branches/tail 1e-4, resize "
-          "1e-5), bf16 within one bf16 rounding | bf16 max |err| "
+          "passes 1e-5 and labels equal where decided, branches/tail 1e-4, "
+          "resize 1e-5, EESP branches and DownSampler front 1e-5 + rtol "
+          "1e-5, EESP stage 5e-4 + rtol 5e-4), bf16 within one bf16 "
+          "rounding (EESP stage: units + 1 roundings of |want| and of the "
+          f"rms; its outputs' rms up to {stage_rms:.4g}) | bf16 max |err| "
           + ", ".join(f"{k} {v:.3g}" for k, v in err16.items()), flush=True)
 
     convs = [label_conversion_matrix(n) for n, _ in SOURCES]
@@ -321,6 +561,21 @@ def phase_kernels():
         ("resize_x2_cm", "mspl_tpu_torch/csrc/resize_x2.cu",
          "mspl_tpu/ops/pallas_resize.py:53", resize_calls, resize_work,
          resize_x2.resize_x2_cm, resize_x2.resize_x2_cm_plain, interp),
+        ("eesp_branches", "mspl_tpu_torch/csrc/eesp_branches.cu",
+         "mspl_tpu/ops/pallas_eesp.py:62", eesp_calls, eesp_work,
+         eesp_branches.eesp_branches, eesp_branches.eesp_branches_plain,
+         None),
+        ("eesp_stage_fused_eval", "mspl_tpu_torch/csrc/eesp_stage.cu",
+         "mspl_tpu/ops/pallas_eesp_stage.py:229", stage_calls, stage_work,
+         eesp_stage.eesp_stage_fused_eval,
+         eesp_stage.eesp_stage_fused_eval_plain, None),
+        ("down_front", "mspl_tpu_torch/csrc/eesp_branches.cu",
+         "mspl_tpu/ops/pallas_downsampler.py:183", front_calls, front_work,
+         eesp_branches.down_front, eesp_branches.down_front_plain, None),
+        ("fused_pseudo_pass_pm", "mspl_tpu_torch/csrc/pseudo_pm.cu",
+         "mspl_tpu/ops/pallas_pseudo.py:108", pm_calls, pm_work,
+         lambda lg: pseudo.fused_pseudo_pass_pm(lg, convs, kc=kc),
+         lambda lg: pseudo.fused_pseudo_pass_plain(lg, convs, kc=kc), None),
     ]
     rows = []
     for name, src, replaces, make_calls, work, kern, plain, lib in table:
@@ -329,16 +584,23 @@ def phase_kernels():
         k_ms, p_ms = time_ms(run(kern)), time_ms(run(plain))
         k_ms = min(k_ms, time_ms(run(kern)))
         l_ms = None if lib is None else time_ms(run(lib))
-        b_ms, b_by = bound(*work(calls))
+        b_ms, b_by, term = bound(*work(calls))
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=0,
                          max_abs_err=err16[name], ms=k_ms, plain_ms=p_ms,
                          bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
                          calls_per_batch=len(calls)))
+        nbytes, *ops = work(calls)
+        lib_txt = ("none (no one PyTorch call computes it)" if l_ms is None
+                   else f"{l_ms:.3f} ms")
+        work_txt = ", ".join([f"{nbytes / 1e9:.3f} GB"] + [
+            f"{o / 1e9:.1f} GFLOP {kind}" for o, kind in
+            zip(ops, ("f32", "bf16 products")) if o])
         print(f"phase 3 time {name} (batch {BATCH}, bf16, {len(calls)} "
               f"calls per main-path batch): kernel {k_ms:.3f} ms, plain "
-              f"{p_ms:.3f} ms, library {l_ms if l_ms is None else round(l_ms, 3)} "
-              f"ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
+              f"{p_ms:.3f} ms, library {lib_txt}, bound {b_ms:.3f} ms "
+              f"({term}; {work_txt})", flush=True)
+        del calls
     return rows
 
 
@@ -370,52 +632,79 @@ COUNTERS = {
 }
 PER_BATCH = {"fused_pseudo_cm": 1, "pyr_pool_fused_eval": 3,
              "pyr_branches": 9, "resize_x2_cm": 3}
+# the kernels that only the other routes launch (phase 5); the DownSampler
+# front is on no route
+ROUTE_COUNTERS = {
+    "eesp_branches": eesp_branches.eesp_branches,
+    "eesp_stage_fused_eval": eesp_stage.eesp_stage_fused_eval,
+    "down_front": eesp_branches.down_front,
+    "fused_pseudo_pass_pm": pseudo.fused_pseudo_pass_pm,
+}
+ALL_COUNTERS = {**COUNTERS, **ROUTE_COUNTERS}
 
 
 @contextlib.contextmanager
 def plain_kernels():
     """Route the model and the engine through the plain versions by name."""
+    import mspl_tpu_torch.layers.eesp as le
     import mspl_tpu_torch.layers.pyramid_pool as pp
     import mspl_tpu_torch.models.espnetv2 as me
 
-    saved = (pp.pyr_branches, pp.pyr_pool_fused_eval, me.resize_x2_cm,
-             generate.fused_pseudo_cm)
-    pp.pyr_branches = pyrpool.pyr_branches_plain
-    pp.pyr_pool_fused_eval = pyrpool.pyr_pool_fused_eval_plain
-    me.resize_x2_cm = resize_x2.resize_x2_cm_plain
-    generate.fused_pseudo_cm = pseudo_cm.fused_pseudo_cm_plain
+    swaps = [(pp, "pyr_branches", pyrpool.pyr_branches_plain),
+             (pp, "pyr_pool_fused_eval", pyrpool.pyr_pool_fused_eval_plain),
+             (me, "resize_x2_cm", resize_x2.resize_x2_cm_plain),
+             (generate, "fused_pseudo_cm", pseudo_cm.fused_pseudo_cm_plain),
+             (le, "eesp_branches", eesp_branches.eesp_branches_plain),
+             (me, "eesp_stage_fused_eval",
+              eesp_stage.eesp_stage_fused_eval_plain),
+             (generate, "fused_pseudo_pass_pm",
+              pseudo.fused_pseudo_pass_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        (pp.pyr_branches, pp.pyr_pool_fused_eval, me.resize_x2_cm,
-         generate.fused_pseudo_cm) = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def breakdown(gen, imgs_u8):
-    """CUDA-event times of one batch's stages (ms)."""
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    """CUDA-event times of one batch's stages (ms), as `gen.batch_pass`
+    runs them; the pixel-major route's copy of the NHWC views into
+    contiguous logits is its own stage."""
+    marks = [("start", torch.cuda.Event(enable_timing=True))]
+
+    def mark(name):
+        marks.append((name, torch.cuda.Event(enable_timing=True)))
+        marks[-1][1].record()
+
     with torch.inference_mode():
-        ev[0].record()
+        marks[0][1].record()
         x = gen.normalize_fn(imgs_u8).to(gen.common_dtype)
-        ev[1].record()
+        mark("normalize")
         logits = []
-        for i, s in enumerate(gen.sources):
+        for s in gen.sources:
             logits.append(s(x))
-            ev[2 + i].record()
-        pseudo_cm.fused_pseudo_cm(logits, gen.conversions, gen.kc)
-        ev[5].record()
-    ev[5].synchronize()
-    names = ["normalize"] + [f"forward {s.name}" for s in gen.sources] + [
-        "fused pass"]
-    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+            mark(f"forward {s.name}")
+        if gen.use_pallas:
+            logits = [lg.contiguous() for lg in logits]
+            mark("NHWC copy")
+            pseudo.fused_pseudo_pass_pm(logits, gen.conversions, kc=gen.kc)
+        else:
+            pseudo_cm.fused_pseudo_cm(logits, gen.conversions, gen.kc)
+        mark("fused pass")
+    marks[-1][1].synchronize()
+    return {name: a.elapsed_time(b) for (_, a), (name, b) in
+            zip(marks, marks[1:])}
 
 
-def profile_sweep(sweep, n_images: int, out_dir: str) -> None:
+def profile_sweep(sweep, n_images: int, out_dir: str,
+                  label: str = "phase 4") -> None:
     """torch.profiler over one sweep of `n_images`: the device's busy and
     idle share of the wall, the idle gaps over 0.3 ms with the host
     operations that overlap them, and the kernels that take the most device
     time; the full kernel table and a chrome trace go to `out_dir`."""
-    import os
     from collections import Counter
 
     from torch.autograd import DeviceType
@@ -459,11 +748,11 @@ def profile_sweep(sweep, n_images: int, out_dir: str) -> None:
         lines.append(f"{(b - a) / 1e3:.2f} ms at +{(a - spans[0][0]) / 1e3:.1f}"
                      " ms (" + ", ".join(f"{n} {v:.1f}" for n, v in
                                          over.most_common(3)) + ")")
-    print(f"phase 4 profile of a {n_images}-image sweep: wall {wall_ms:.2f} "
+    print(f"{label} profile of a {n_images}-image sweep: wall {wall_ms:.2f} "
           f"ms, device busy {busy:.2f} ms ({busy / wall_ms:.3f} of wall, idle "
           f"{1 - busy / wall_ms:.3f}); largest idle gaps: "
           + ("; ".join(lines) or "none"), flush=True)
-    print("phase 4 profile top kernels: " + "; ".join(
+    print(f"{label} profile top kernels: " + "; ".join(
         f"{dev_ms(e):.2f} ms {e.count}x {e.key[:70]}" for e in kernels[:15]),
         flush=True)
 
@@ -484,41 +773,17 @@ def phase_main_path(n_batches: int, smi: str, profile_dir=None):
         0, 256, (2 * BATCH, *HW, 3), dtype=np.uint8)
     n_images = BATCH * n_batches
 
-    def sweep(n):
-        loader = DataLoader(SyntheticImages(n, pool), batch_size=BATCH,
-                            num_workers=2)
-        labels, confs, _ = gen(loader, return_device=True)
-        hist = class_confidence_histograms(labels, confs, 3)
-        return labels, confs, hist, kc_from_histograms(hist, 0.5)
+    sweep = make_sweep(gen, pool)
 
     # warm-up: cuDNN plans, allocators (two pinned batches: the lookahead),
     # kernel libraries
     sweep(2 * BATCH)
     torch.cuda.synchronize()
-    for fn in COUNTERS.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    labels, confs, hist, kc_next = sweep(n_images)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in COUNTERS.items()}
-    for k, per in PER_BATCH.items():
-        if launches[k] != per * n_batches:
-            raise AssertionError(f"{k}: {launches[k]} launches in "
-                                 f"{n_batches} batches, expected {per} each")
+    expect = {k: PER_BATCH.get(k, 0) for k in ALL_COUNTERS}
+    labels, confs, hist, kc_next, secs, launches = timed_sweep(
+        sweep, n_batches, expect)
     imgs_per_s = n_images / secs
-
-    if labels.shape != (n_images, *HW) or labels.dtype != torch.uint8:
-        raise AssertionError(f"labels {tuple(labels.shape)} {labels.dtype}")
-    values = set(torch.unique(labels).tolist())
-    if not values <= {0, 1, 2, 255}:
-        raise AssertionError(f"label values {sorted(values)}")
-    if not torch.isfinite(confs).all() or confs.min() < -1e-6 \
-            or confs.max() > 1 + 1e-6:
-        raise AssertionError("confidences not finite in [0, 1]")
-    kept = int((labels != 255).sum())
-    if int(hist.sum()) != kept:
-        raise AssertionError(f"histogram holds {int(hist.sum())} of {kept}")
+    kept = check_sweep(labels, confs, hist, n_images)
     print(f"phase 4 main path: {n_batches} batches of {BATCH} at "
           f"{HW[0]}x{HW[1]}, 3 ESPNetv2-s2.0 sources bf16 -> "
           f"{imgs_per_s:.2f} img/s ({secs:.3f} s, host clock, sweep + "
@@ -544,20 +809,150 @@ def phase_main_path(n_batches: int, smi: str, profile_dir=None):
           f"agreement {agree:.6f}, max |conf err| {dconf:.3g}", flush=True)
     if profile_dir:
         profile_sweep(sweep, n_images, profile_dir)
-    return launches, imgs_per_s
+    return launches, imgs_per_s, gen, pool, lab_k
+
+
+def make_sweep(gen, pool):
+    def sweep(n):
+        loader = DataLoader(SyntheticImages(n, pool), batch_size=BATCH,
+                            num_workers=2)
+        labels, confs, _ = gen(loader, return_device=True)
+        hist = class_confidence_histograms(labels, confs, 3)
+        return labels, confs, hist, kc_from_histograms(hist, 0.5)
+    return sweep
+
+
+def timed_sweep(sweep, n_batches: int, expect):
+    """One sweep of `n_batches` with every launch count set to 0 just before
+    it and read just after; raises unless each kernel launched `expect[k]`
+    times a batch.  Returns the sweep's outputs, its seconds and the
+    counts."""
+    for fn in ALL_COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    labels, confs, hist, kc_next = sweep(BATCH * n_batches)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in ALL_COUNTERS.items()}
+    for k, per in expect.items():
+        if launches[k] != per * n_batches:
+            raise AssertionError(f"{k}: {launches[k]} launches in "
+                                 f"{n_batches} batches, expected {per} each")
+    return labels, confs, hist, kc_next, secs, launches
+
+
+def check_sweep(labels, confs, hist, n_images: int) -> int:
+    """Shapes, label values, confidences in [0, 1] and the histogram's
+    total; returns the count of kept (non-ignore) pixels."""
+    if labels.shape != (n_images, *HW) or labels.dtype != torch.uint8:
+        raise AssertionError(f"labels {tuple(labels.shape)} {labels.dtype}")
+    values = set(torch.unique(labels).tolist())
+    if not values <= {0, 1, 2, 255}:
+        raise AssertionError(f"label values {sorted(values)}")
+    if not torch.isfinite(confs).all() or confs.min() < -1e-6 \
+            or confs.max() > 1 + 1e-6:
+        raise AssertionError("confidences not finite in [0, 1]")
+    kept = int((labels != 255).sum())
+    # the histogram keeps float32 counts: a bin above 2^24 rounds, so each
+    # bin may be off by half its float32 ulp
+    held = hist.double()
+    if abs(held.sum().item() - kept) > (held * 2.0 ** -24).sum().item() + 0.5:
+        raise AssertionError(f"histogram holds {held.sum().item()} of {kept}")
+    return kept
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the other kernel routes at full width
+# ---------------------------------------------------------------------------
+
+# name: (model flags, channel-major sources, generator use_pallas, the
+# route's own kernel and its launches a batch: one per stride-1 unit for
+# the branch and stage kernels, 3 sources x 10 units)
+ROUTES = (
+    ("use_pallas", dict(use_pallas=True), True, False,
+     ("eesp_branches", 30)),
+    ("fuse_stages", dict(fuse_stages=True), True, False,
+     ("eesp_stage_fused_eval", 30)),
+    ("nhwc_use_pallas", {}, False, True, ("fused_pseudo_pass_pm", 1)),
+)
+
+
+def phase_routes(n_batches: int, smi: str, gen_default, pool, lab_default,
+                 profile_dir=None):
+    """Each route's sources carry the default route's weights (the state
+    dicts load unchanged into every flag combination)."""
+    n_images = BATCH * n_batches
+    imgs = torch.from_numpy(pool[:BATCH]).cuda()
+    launches_of = {}
+    for route, flags, cm, use_pallas, (kernel, per) in ROUTES:
+        sources = []
+        for (name, c), src in zip(SOURCES, gen_default.sources):
+            model = ESPNetv2Segmentation(c, s=2.0,
+                                         compute_dtype=torch.bfloat16,
+                                         **flags)
+            model.load_state_dict(src.model.state_dict())
+            sources.append(generate.make_source(name, model, None, name,
+                                                channel_major=cm,
+                                                device="cuda"))
+        gen = generate.PseudoLabelGenerator(
+            sources, mode="soft", kc=np.full(3, KC, np.float32),
+            conf_mode="prob", use_pallas=use_pallas, device="cuda")
+        sweep = make_sweep(gen, pool)
+        sweep(BATCH)  # warm-up: this route's kernels and plans
+        torch.cuda.synchronize()
+        expect = {k: 0 for k in ALL_COUNTERS}
+        expect.update({k: v for k, v in PER_BATCH.items()
+                       if cm or k != "fused_pseudo_cm"})
+        expect[kernel] = per
+        labels, confs, hist, kc_next, secs, launches = timed_sweep(
+            sweep, n_batches, expect)
+        kept = check_sweep(labels, confs, hist, n_images)
+        launches_of[kernel] = launches[kernel]
+        del labels, confs
+        for _ in range(3):  # the last of three, after two warm ones
+            stages = breakdown(gen, imgs)
+        lab_k, _ = gen.batch_pass(imgs)
+        with plain_kernels():
+            lab_p, _ = gen.batch_pass(imgs)
+        agree_p = (lab_k == lab_p).float().mean().item()
+        agree_d = (lab_k == lab_default).float().mean().item()
+        if min(agree_p, agree_d) < 0.995:
+            raise AssertionError(
+                f"route {route}: label agreement {agree_p:.5f} with the "
+                f"plain versions, {agree_d:.5f} with the default route")
+        print(f"phase 5 route {route}: {n_batches} batches of {BATCH} -> "
+              f"{n_images / secs:.2f} img/s ({secs:.3f} s, host clock, sweep "
+              f"+ histograms + kc) on {smi} | {kernel} {launches[kernel]} "
+              f"launches ({per} a batch) | launches {json.dumps(launches)} | "
+              f"kept {kept / (n_images * HW[0] * HW[1]):.4f} | label "
+              f"agreement {agree_p:.6f} with the plain versions, "
+              f"{agree_d:.6f} with the default route", flush=True)
+        print(f"phase 5 route {route} one batch by stage (ms, CUDA events): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()),
+              flush=True)
+        if profile_dir and route == "fuse_stages":
+            profile_sweep(sweep, n_images, os.path.join(profile_dir, route),
+                          f"phase 5 route {route}")
+        del gen, sources, sweep
+    return launches_of
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batches", type=int, default=8,
-                    help="timed main-path batches of 128 (default 8)")
+                    help="timed batches of 128 of the main path and of each "
+                         "phase-5 route (default 8)")
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile one main-path sweep into DIR")
+                    help="also profile one main-path sweep, and one sweep "
+                         "of the fuse_stages route, into DIR")
     args = ap.parse_args()
     smi = phase_device()
     phase_build()
     rows = phase_kernels()
-    launches, _ = phase_main_path(args.batches, smi, args.profile)
+    launches, _, gen, pool, lab_default = phase_main_path(
+        args.batches, smi, args.profile)
+    launches.update(phase_routes(args.batches, smi, gen, pool, lab_default,
+                                 args.profile))
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": rows}), flush=True)

@@ -5,8 +5,10 @@ with hierarchical feature fusion (cumulative adds), concat, BN+PReLU,
 grouped 1x1 CB expand, residual add when shapes match, PReLU.  The strided
 variant (`down_method='avg'`) skips the residual; `DownSampler` concatenates
 it with a 3x3/s2 average pool and adds the RGB reinforcement branch.  The
-depthwise branches are native grouped convolutions (the JAX package's
-Pallas branch kernels are off by default on its main path).
+depthwise branches are native grouped convolutions by default;
+`use_pallas=True` sends a stride-1 unit's branch stack + HFF to the CUDA
+kernel of `ops/eesp_branches.py`, as the JAX package's flag sends it to its
+Pallas kernel.  The parameter tree is the same either way.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mspl_tpu_torch.layers.conv_blocks import BR, CB, CBR, PReLU
+from mspl_tpu_torch.ops.eesp_branches import eesp_branches
 
 
 def branch_dilations(k: int, r_lim: int) -> Tuple[int, ...]:
@@ -39,8 +42,10 @@ class EESP(nn.Module):
     """Extremely Efficient Spatial Pyramid unit (eval)."""
 
     def __init__(self, nin: int, nout: int, stride: int = 1, k: int = 4,
-                 r_lim: int = 7, down_method: str = "esp"):
+                 r_lim: int = 7, down_method: str = "esp",
+                 use_pallas: bool = False):
         super().__init__()
+        self.use_pallas = use_pallas
         n = nout // k
         if n * k != nout:
             raise ValueError(f"EESP nout={nout} must be divisible by k={k}")
@@ -61,14 +66,27 @@ class EESP(nn.Module):
 
     def forward(self, x: torch.Tensor, with_pool: bool = False):
         proj = self.proj_1x1(x)
-        branches = []
-        for wk, d in zip(self.dw, self.dilations):
-            b = F.conv2d(proj, wk.to(proj.dtype), stride=self.stride,
-                         padding=d, dilation=d, groups=proj.shape[1])
-            if branches:  # hierarchical feature fusion
-                b = b + branches[-1]
-            branches.append(b)
-        merged = self.br_after_cat(torch.cat(branches, dim=1))
+        # The DownSampler front kernel (ops/eesp_branches.py::down_front)
+        # stays unrouted, as in the JAX package (mspl_tpu/layers/eesp.py:111,
+        # `fused_front = False`): there it ran ~4x slower than the lax path,
+        # so no path of the reference takes it.  Strided units keep
+        # F.conv2d whatever `use_pallas` says.
+        if self.use_pallas and self.stride == 1:
+            # the K kernels in the kernel's [K, 3, 3, n] layout, stacked on
+            # their own device (no host round trip)
+            taps = torch.stack([wk[:, 0] for wk in self.dw])
+            taps = taps.permute(0, 2, 3, 1)
+            merged = eesp_branches(proj, taps, self.dilations)
+        else:
+            branches = []
+            for wk, d in zip(self.dw, self.dilations):
+                b = F.conv2d(proj, wk.to(proj.dtype), stride=self.stride,
+                             padding=d, dilation=d, groups=proj.shape[1])
+                if branches:  # hierarchical feature fusion
+                    b = b + branches[-1]
+                branches.append(b)
+            merged = torch.cat(branches, dim=1)
+        merged = self.br_after_cat(merged)
         expanded = self.conv_1x1_exp(merged)
         if self.avg:
             if with_pool:

@@ -9,6 +9,12 @@ the resize kernel, as the JAX model with `channel_major_logits=True`.
 `compute_dtype=torch.bfloat16` keeps the parameters in f32 and runs the
 activations in bf16; the logits come out in bf16.  The classification head
 (ImageNet pretraining) and a train-mode forward belong to later slices.
+
+Encoder routes, as the JAX model's flags: `use_pallas=True` sends each
+stride-1 EESP unit's branch stack to the kernel of `ops/eesp_branches.py`;
+`fuse_stages=True` runs each stride-1 stage (level3, level4) through the
+fused-stage kernel of `ops/eesp_stage.py` (eval only) and takes precedence
+over `use_pallas` there.  The parameter tree is the same for every flag.
 """
 
 from __future__ import annotations
@@ -20,8 +26,11 @@ import torch
 import torch.nn as nn
 
 from mspl_tpu_torch.layers.conv_blocks import CBR, TRAIN_SLICE
-from mspl_tpu_torch.layers.eesp import EESP, DownSampler, _avg_pool_3x3_s2
+from mspl_tpu_torch.layers.eesp import (EESP, DownSampler, _avg_pool_3x3_s2,
+                                        branch_dilations)
 from mspl_tpu_torch.layers.pyramid_pool import EfficientPWC, EfficientPyrPool
+from mspl_tpu_torch.ops.eesp_stage import (eesp_block_params,
+                                           eesp_stage_fused_eval)
 from mspl_tpu_torch.ops.resize_x2 import resize_x2_cm
 
 
@@ -47,24 +56,42 @@ class EESPNet(nn.Module):
     """ESPNetv2 backbone as a segmentation encoder (`encode`)."""
 
     def __init__(self, s: float = 2.0, reinf: bool = True,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 use_pallas: bool = False, fuse_stages: bool = False):
         super().__init__()
         cfg = eespnet_channel_plan(s)
         self.reinf = reinf
         self.compute_dtype = compute_dtype
+        self.fuse_stages = fuse_stages
         self.level1 = CBR(3, cfg[0], 3, stride=2)
         self.level2_0 = DownSampler(cfg[0], cfg[1], k=_STAGE_K[0],
                                     r_lim=_STAGE_RLIM[0], reinf=reinf)
         self.level3_0 = DownSampler(cfg[1], cfg[2], k=_STAGE_K[1],
                                     r_lim=_STAGE_RLIM[1], reinf=reinf)
         self.level3_blocks = nn.ModuleList(
-            [EESP(cfg[2], cfg[2], k=_STAGE_K[2], r_lim=_STAGE_RLIM[2])
+            [EESP(cfg[2], cfg[2], k=_STAGE_K[2], r_lim=_STAGE_RLIM[2],
+                  use_pallas=use_pallas)
              for _ in range(_STAGE_REPS[1])])
         self.level4_0 = DownSampler(cfg[2], cfg[3], k=_STAGE_K[2],
                                     r_lim=_STAGE_RLIM[2], reinf=reinf)
         self.level4_blocks = nn.ModuleList(
-            [EESP(cfg[3], cfg[3], k=_STAGE_K[3], r_lim=_STAGE_RLIM[3])
+            [EESP(cfg[3], cfg[3], k=_STAGE_K[3], r_lim=_STAGE_RLIM[3],
+                  use_pallas=use_pallas)
              for _ in range(_STAGE_REPS[2])])
+
+    def _run_stage(self, x: torch.Tensor, blocks: nn.ModuleList, k: int,
+                   r_lim: int) -> torch.Tensor:
+        """A stride-1 EESP stage: the fused-stage kernel when `fuse_stages`
+        is set (eval only), unit by unit otherwise."""
+        if blocks and self.fuse_stages:
+            if self.training:
+                raise NotImplementedError(TRAIN_SLICE)
+            return eesp_stage_fused_eval(
+                x, [eesp_block_params(blk) for blk in blocks],
+                branch_dilations(k, r_lim))
+        for blk in blocks:
+            x = blk(x)
+        return x
 
     def encode(self, x: torch.Tensor):
         """Encoder taps at strides 2, 4, 8, 16 of NCHW `x`."""
@@ -77,11 +104,11 @@ class EESPNet(nn.Module):
         img16 = _avg_pool_3x3_s2(img8) if self.reinf else img
         l2 = self.level2_0(l1, img4)
         l3 = self.level3_0(l2, img8)
-        for blk in self.level3_blocks:
-            l3 = blk(l3)
+        l3 = self._run_stage(l3, self.level3_blocks, _STAGE_K[2],
+                             _STAGE_RLIM[2])
         l4 = self.level4_0(l3, img16)
-        for blk in self.level4_blocks:
-            l4 = blk(l4)
+        l4 = self._run_stage(l4, self.level4_blocks, _STAGE_K[3],
+                             _STAGE_RLIM[3])
         return l1, l2, l3, l4
 
 
@@ -92,7 +119,8 @@ class ESPNetv2Segmentation(nn.Module):
     def __init__(self, num_classes: int, s: float = 2.0,
                  dec_base_planes: int = 16,
                  compute_dtype: torch.dtype = torch.float32,
-                 channel_major_logits: bool = True):
+                 channel_major_logits: bool = True,
+                 use_pallas: bool = False, fuse_stages: bool = False):
         super().__init__()
         if not channel_major_logits:
             raise ValueError("the port's logits are channel-major (NCHW); "
@@ -104,7 +132,9 @@ class ESPNetv2Segmentation(nn.Module):
         dec = (4 * bp, 3 * bp, 2 * bp, num_classes)
         # floor of 8 keeps the depthwise pyramid wide enough for tiny heads
         proj = min(bp, max(num_classes // 2, 8))
-        self.base_net = EESPNet(s=s, reinf=True, compute_dtype=compute_dtype)
+        self.base_net = EESPNet(s=s, reinf=True, compute_dtype=compute_dtype,
+                                use_pallas=use_pallas,
+                                fuse_stages=fuse_stages)
         self.bu_dec_l1 = EfficientPyrPool(cfg[3], proj, dec[0])
         self.merge_l2 = EfficientPWC(cfg[2], dec[0])
         self.bu_dec_l2 = EfficientPyrPool(dec[0], proj, dec[1])

@@ -25,7 +25,8 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("pseudo_cm", "pyrpool", "resize_x2")
+SOURCES = ("pseudo_cm", "pyrpool", "resize_x2", "eesp_branches", "eesp_stage",
+           "pseudo_pm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

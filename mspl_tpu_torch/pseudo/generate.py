@@ -8,13 +8,18 @@ maps) and low-confidence pixels are set to ignore (255) with per-class
 thresholds kc (CBST, `pseudo/cbst.py`).
 
 Channel-major sources (the main path) feed the fused pass of
-`ops/pseudo_cm.py`, a CUDA kernel on the card; NHWC sources take the plain
-`fused_pseudo_pass` below.  PyTorch runs eagerly, so the JAX package's
-compiled-program reuse has no counterpart: `set_variables` loads new weights
-into a source's module in place and the next sweep uses them.
+`ops/pseudo_cm.py`, a CUDA kernel on the card, whatever `use_pallas` says.
+NHWC sources take the plain `fused_pseudo_pass` (re-exported from
+`ops/pseudo.py`), or with `use_pallas=True` the pixel-major kernel of
+`ops/pseudo.py`; that route first copies each source's NHWC view
+(`SourceModel(channel_major=False)` permutes the model's NCHW logits) into
+the contiguous layout the kernel reads, a copy flax's NHWC models never
+pay.  PyTorch runs eagerly, so the JAX package's compiled-program reuse has
+no counterpart: `set_variables` loads new weights into a source's module in
+place and the next sweep uses them.
 
-Not in this slice: the device mesh (data and model-axis parallelism) and
-`use_pallas` (the pixel-major fused kernel); passing either raises.
+Not in this slice: the device mesh (data and model-axis parallelism);
+passing one raises.
 """
 
 from __future__ import annotations
@@ -28,6 +33,9 @@ import torch.nn as nn
 
 from mspl_tpu_torch.data.label_space import label_conversion_matrix
 from mspl_tpu_torch.data.transforms import normalize as default_normalize
+from mspl_tpu_torch.ops.pseudo import fused_pseudo_pass_plain as \
+    fused_pseudo_pass  # the reference pass, under the JAX package's name
+from mspl_tpu_torch.ops.pseudo import fused_pseudo_pass_pm
 from mspl_tpu_torch.ops.pseudo_cm import fused_pseudo_cm
 from mspl_tpu_torch.utils.flax_bridge import load_flax_variables
 from mspl_tpu_torch.utils.registry import IGNORE_LABEL
@@ -100,92 +108,6 @@ def make_source(name: str, model: nn.Module, variables, src_dataset: str,
     )
 
 
-def convert_probs(probs: torch.Tensor, conversion) -> torch.Tensor:
-    """Pool source-space probabilities [..., C] into the target space."""
-    mat = torch.as_tensor(np.asarray(conversion), dtype=probs.dtype,
-                          device=probs.device)
-    return torch.einsum("...s,st->...t", probs, mat)
-
-
-def entropy_confidence(dist: torch.Tensor) -> torch.Tensor:
-    """1 - H(dist) / ln(K) over the last axis (normalized anti-entropy)."""
-    d = dist.to(torch.float32)
-    xlogx = torch.where(d > 0, d * torch.log(torch.clamp(d, min=1e-30)),
-                        torch.zeros_like(d))
-    return 1.0 - (-xlogx.sum(dim=-1)) / float(np.log(dist.shape[-1]))
-
-
-def _apply_kc(label, conf, kc, t, ignore_label):
-    if kc is None:
-        return label, conf
-    kc_t = torch.broadcast_to(
-        torch.as_tensor(kc, dtype=torch.float32, device=conf.device), (t,))
-    safe = torch.where(label == ignore_label, 0, label)
-    ignore = torch.full_like(label, ignore_label)
-    return torch.where(conf >= kc_t[safe], label, ignore), conf
-
-
-def fused_pseudo_pass(
-    logits_list: Sequence[torch.Tensor],
-    conversions: Sequence[np.ndarray],
-    mode: str = "soft",
-    kc=None,
-    num_target: Optional[int] = None,
-    min_agree: Optional[int] = None,
-    ignore_label: int = IGNORE_LABEL,
-    conf_mode: str = "prob",
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fuse N NHWC logit tensors [B,H,W,C_m] into (label int32 [B,H,W],
-    conf f32 [B,H,W]); the plain reference of the fused pass.
-
-    soft: mean of the converted probability maps, conf = its max over the
-    T target classes (entropy: 1 - H/ln(T+1) of the full T+1 map).  hard:
-    one-hot votes of each model's converted argmax (the ignore column votes
-    for nothing), label = vote argmax, ignore below `min_agree` (default a
-    strict majority), conf = agreeing fraction (entropy: of the vote
-    distribution with abstentions as ignore votes).  kc=None does not
-    threshold at all (the fused kernel thresholds against 0 instead)."""
-    if len(logits_list) != len(conversions) or not logits_list:
-        raise ValueError("need N>=1 matching logits/conversion pairs")
-    if conf_mode not in ("prob", "entropy"):
-        raise ValueError(f"unknown conf_mode '{conf_mode}'")
-    n_models = len(logits_list)
-    t = int(np.asarray(conversions[0]).shape[1]) - 1
-    if num_target is not None and num_target != t:
-        raise ValueError(f"conversion target dim {t} != num_target {num_target}")
-
-    if mode == "soft":
-        acc = None
-        for logits, mat in zip(logits_list, conversions):
-            q = convert_probs(torch.softmax(logits.to(torch.float32), -1), mat)
-            acc = q if acc is None else acc + q
-        fused = acc / n_models
-        label = torch.argmax(fused[..., :t], dim=-1).to(torch.int32)
-        conf = (entropy_confidence(fused) if conf_mode == "entropy"
-                else fused[..., :t].amax(dim=-1))
-    elif mode == "hard":
-        votes = None
-        for logits, mat in zip(logits_list, conversions):
-            q = convert_probs(torch.softmax(logits.to(torch.float32), -1), mat)
-            lab_m = torch.argmax(q, dim=-1)  # may be t, the ignore column
-            onehot = (lab_m[..., None] == torch.arange(
-                t, device=q.device)).to(torch.float32)
-            votes = onehot if votes is None else votes + onehot
-        label = torch.argmax(votes, dim=-1).to(torch.int32)
-        top = votes.amax(dim=-1)
-        need = min_agree if min_agree is not None else (n_models // 2 + 1)
-        if conf_mode == "entropy":
-            ig = n_models - votes.sum(dim=-1, keepdim=True)
-            conf = entropy_confidence(torch.cat([votes, ig], -1) / n_models)
-        else:
-            conf = top / n_models
-        label = torch.where(top >= need, label,
-                            torch.full_like(label, ignore_label))
-    else:
-        raise ValueError(f"unknown fusion mode '{mode}'")
-    return _apply_kc(label, conf, kc, t, ignore_label)
-
-
 class PseudoLabelGenerator:
     """The pseudo-label engine over a fixed set of sources on one device.
 
@@ -210,9 +132,6 @@ class PseudoLabelGenerator:
     ):
         if mesh is not None:
             raise NotImplementedError(f"a device mesh {_LATER}")
-        if use_pallas:
-            raise NotImplementedError(
-                f"use_pallas (the pixel-major fused kernel) {_LATER}")
         if mode not in ("soft", "hard"):
             raise ValueError(f"unknown fusion mode '{mode}'")
         if conf_mode not in ("prob", "entropy"):
@@ -227,6 +146,9 @@ class PseudoLabelGenerator:
         for s in self.sources:
             s.model.to(self.device).eval()
         self.mode, self.conf_mode, self.min_agree = mode, conf_mode, min_agree
+        # channel-major sources take the channel-major kernel whatever the
+        # flag says, as in the JAX package
+        self.use_pallas = bool(use_pallas) and not self.channel_major
         self.ignore_label = ignore_label
         self.normalize_fn = normalize_fn or default_normalize
         self.conversions = [np.asarray(s.conversion, np.float32)
@@ -259,6 +181,11 @@ class PseudoLabelGenerator:
                 logits, self.conversions, self.kc, mode=self.mode,
                 min_agree=self.min_agree, ignore_label=self.ignore_label,
                 conf_mode=self.conf_mode)
+        elif self.use_pallas:
+            lab, conf = fused_pseudo_pass_pm(
+                [x.contiguous() for x in logits], self.conversions,
+                mode=self.mode, kc=self.kc, min_agree=self.min_agree,
+                ignore_label=self.ignore_label, conf_mode=self.conf_mode)
         else:
             lab, conf = fused_pseudo_pass(
                 logits, self.conversions, mode=self.mode, kc=self.kc,

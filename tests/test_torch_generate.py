@@ -180,7 +180,7 @@ def test_set_variables_swaps_weights_in_place(sweep):
 
 
 @pytest.mark.parametrize("kwargs", [dict(mesh=object()),
-                                    dict(use_pallas=True),
+                                    dict(conf_mode="margin"),
                                     dict(mode="vote")])
 def test_generator_rejects_what_this_slice_lacks(sweep, kwargs):
     with pytest.raises((NotImplementedError, ValueError)):
