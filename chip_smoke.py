@@ -9,7 +9,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
   2. build: compile every CUDA kernel of mspl_tpu_torch/csrc with nvcc,
      one process per source, all at once.
   3. kernels: each kernel against its plain PyTorch version at the main
-     path's shapes (fp32 first, then bf16), then its time at batch 128
+     path's shapes (fp32 first, then bf16; the pyramid-pool tail and the
+     logits resize also at odd shapes off the main path), the tail's band
+     widths and blocks per SM, then each kernel's time at batch 128
      beside the plain version's, a library call's where one computes the
      same function, and its bound on an H100 (memory at 3.35 TB/s, f32
      arithmetic at 67 TFLOP/s, matrix products at the bf16 tensor-core
@@ -235,6 +237,38 @@ def tail_calls(b, dtype, gen):
 def resize_calls(b, dtype, gen):
     return [(_rand(gen, (b, c, 128, 240), 3.0, dtype), HW, True)
             for _, c in SOURCES]
+
+
+# shapes off the main path, checked beside it: an odd plane whose 1.25
+# scale takes the tail kernel's 6-wide band instance, and a tiny plane
+# where the branch sizes' clamp to 5 bites (band 2, run as 3); resizes
+# that are not x2 (odd sizes, a W that shrinks), whose rows start
+# unaligned, so the kernel stores element by element
+ODD_SCALES = (2.0, 1.25, 1.0, 0.5, 0.1)
+
+
+def tail_odd_calls(dtype, gen):
+    calls = []
+    for (b, p, h, w, o), scales in (((2, 9, 37, 53, 7), ODD_SCALES),
+                                    ((2, 8, 2, 3, 5), SCALES)):
+        s_n = len(scales)
+        calls.append((_rand(gen, (b, p, h, w), 1.0, dtype),
+                      _rand(gen, (s_n, 3, 3, p), 0.5), _affine(gen, s_n * p),
+                      _rand(gen, (3, 3, s_n, p), 0.3), _affine(gen, p),
+                      _rand(gen, (p, o), 0.5), _rand(gen, (o,), 0.1),
+                      _affine(gen, o), scales))
+    return calls
+
+
+def resize_odd_calls(dtype, gen):
+    return [(_rand(gen, (2, 5, 37, 53), 3.0, dtype), (101, 77), True),
+            (_rand(gen, (3, 4, 20, 31), 3.0, dtype), (45, 16), True)]
+
+
+def with_odd(make_calls, odd_calls):
+    """The main path's calls and the odd shapes', for the checks only."""
+    return lambda b, dtype, gen: make_calls(b, dtype, gen) + odd_calls(
+        dtype, gen)
 
 
 def check_elementwise(kernel, plain, make_calls, gen, atol32, name,
@@ -509,6 +543,25 @@ def pm_work(calls):
     return pseudo_work([([x.permute(0, 3, 1, 2) for x in logits],)])
 
 
+def print_tail_layout(gen):
+    """The tail kernel's band width per scale (the main path's plane and
+    the odd ones) and its blocks per SM at the main path's calls."""
+    bands = []
+    for h, w, scales in ((128, 240, SCALES), (37, 53, ODD_SCALES),
+                         (2, 3, SCALES)):
+        ks = [rw.shape[2] for _, (_, rw), _ in
+              pyrpool.scale_bands(h, w, scales)]
+        bands.append(f"{h}x{w} " + ", ".join(
+            f"{s}: {k}" for s, k in zip(scales, ks)))
+    occ = [pyrpool.tail_blocks_per_sm(x, x.shape[1], cls_w.shape[1], sc)
+           for x, _, _, _, _, cls_w, _, _, sc in
+           tail_calls(1, torch.bfloat16, gen)]
+    print("phase 3 pyr_pool_fused_eval layout: band K by scale ("
+          + "; ".join(bands) + f") | blocks per SM {occ} of "
+          f"{pyrpool.TAIL_THREADS} threads (cudaOccupancy"
+          "MaxActiveBlocksPerMultiprocessor)", flush=True)
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     err16 = {}
@@ -519,10 +572,11 @@ def phase_kernels():
         1e-4, "pyr_branches")
     err16["pyr_pool_fused_eval"] = check_elementwise(
         pyrpool.pyr_pool_fused_eval, pyrpool.pyr_pool_fused_eval_plain,
-        tail_calls, gen, 1e-4, "pyr_pool_fused_eval")
+        with_odd(tail_calls, tail_odd_calls), gen, 1e-4,
+        "pyr_pool_fused_eval")
     err16["resize_x2_cm"] = check_elementwise(
-        resize_x2.resize_x2_cm, resize_x2.resize_x2_cm_plain, resize_calls,
-        gen, 1e-5, "resize_x2_cm")
+        resize_x2.resize_x2_cm, resize_x2.resize_x2_cm_plain,
+        with_odd(resize_calls, resize_odd_calls), gen, 1e-5, "resize_x2_cm")
     err16["eesp_branches"] = check_elementwise(
         eesp_branches.eesp_branches, eesp_branches.eesp_branches_plain,
         eesp_calls, gen, 1e-5, "eesp_branches", rtol32=1e-5)
@@ -539,6 +593,7 @@ def phase_kernels():
           "rounding (EESP stage: units + 1 roundings of |want| and of the "
           f"rms; its outputs' rms up to {stage_rms:.4g}) | bf16 max |err| "
           + ", ".join(f"{k} {v:.3g}" for k, v in err16.items()), flush=True)
+    print_tail_layout(gen)
 
     convs = [label_conversion_matrix(n) for n, _ in SOURCES]
     kc = torch.full((3,), KC, device="cuda")
@@ -699,6 +754,13 @@ def breakdown(gen, imgs_u8):
             zip(marks, marks[1:])}
 
 
+# the kernels of mspl_tpu_torch/csrc, by name
+PORT_KERNELS = ("pseudo_cm_kernel", "pseudo_pm_kernel", "pyr_tail_kernel",
+                "down_prepass_kernel", "pyr_branches_kernel",
+                "down_scale_kernel", "resize_rows_kernel", "eesp_unit_kernel",
+                "branches_kernel")
+
+
 def profile_sweep(sweep, n_images: int, out_dir: str,
                   label: str = "phase 4") -> None:
     """torch.profiler over one sweep of `n_images`: the device's busy and
@@ -755,6 +817,12 @@ def profile_sweep(sweep, n_images: int, out_dir: str,
     print(f"{label} profile top kernels: " + "; ".join(
         f"{dev_ms(e):.2f} ms {e.count}x {e.key[:70]}" for e in kernels[:15]),
         flush=True)
+    # the port's own kernels (csrc/), whatever their rank
+    own = [e for e in kernels if e.key.split("<")[0].split("(")[0].split()[-1]
+           in PORT_KERNELS]
+    print(f"{label} profile port kernels: " + "; ".join(
+        f"{dev_ms(e):.2f} ms {e.count}x {e.key.split('(')[0][:60]}"
+        for e in own), flush=True)
 
 
 def phase_main_path(n_batches: int, smi: str, profile_dir=None):

@@ -6,7 +6,10 @@ their plain PyTorch versions.
   comes with the training slice of the port).
 * `pyr_pool_fused_eval` replaces pyr_pool_fused_eval_v3 and its v2/v1
   fallbacks (one contract): the whole eval EfficientPyrPool after the proj
-  conv, for the classifier stage bu_dec_l4.
+  conv, for the classifier stage bu_dec_l4.  Its kernel applies each
+  branch as banded operators at source resolution: the host builds the
+  band tables (`scale_bands`) and lays them out per output tile
+  (`_tail_plan`); `pyr_branches_band` is the same algebra in plain PyTorch.
 
 Both take channel-major [B, P, H, W] input, the layout the TPU kernels work
 in after their entry transpose, and return [B, S*P, H, W] and [B, O, H, W].
@@ -26,12 +29,19 @@ import torch
 import torch.nn.functional as F
 
 from mspl_tpu_torch.ops import _cuda
-from mspl_tpu_torch.ops.resize import (adaptive_avg_pool, adaptive_bins,
-                                       interp_taps, resize_bilinear)
+from mspl_tpu_torch.ops.resize import (_interp_matrix, adaptive_avg_pool,
+                                       adaptive_bins, interp_taps,
+                                       resize_bilinear)
 
 MAX_P, MAX_S = 16, 8
 SMEM_FLOATS = (227 * 1024 - 2048) // 4
-TILE = (16, 32)  # the kernels' output tile (csrc/pyrpool.cu TH, TW)
+TILE = (16, 32)  # the branch kernel's output tile (csrc/pyrpool.cu TH, TW)
+TAIL_TILE = (16, 30)  # the tail kernel's output tile (BTH, BTW)
+TAIL_THREADS = 32 * 16  # its block, one thread per branch column and row
+BAND_KS = (3, 4, 6)  # the tail kernel's band widths (template K)
+# a tail block's shared memory: half of an SM's 228 KB, less the 1 KB the
+# SM reserves for each block
+TAIL_SMEM_FLOATS = (228 * 1024 // 2 - 1024) // 4
 _DTYPES = (torch.float32, torch.bfloat16)
 _KIND_ID, _KIND_UP, _KIND_DOWN = 0, 1, 2
 _plan_cache: Dict[tuple, tuple] = {}
@@ -111,28 +121,28 @@ def pyr_pool_fused_eval_plain(x, dw_weights, aff1, merge_weights, aff2,
     return y.to(x.dtype)
 
 
-def _extent(back: np.ndarray, n: int, n_s: int, tile: int, halo: int):
-    """Largest (R, D) extents along one axis over the kernel's tiles: the
-    branch-resolution rows D that the back taps of a tile (and its halo)
-    read, and those plus the depthwise halo, R (see csrc/pyrpool.cu)."""
+def _extent(back: np.ndarray, n: int, n_s: int, tile: int):
+    """Largest (R, D) extents along one axis over the branch kernel's
+    tiles: the branch-resolution rows D that the back taps of a tile read,
+    and those plus the depthwise halo, R (see csrc/pyrpool.cu)."""
     lo, hi = back[:, 0], back[:, 1]
     if not (np.all(np.diff(lo) >= 0) and np.all(np.diff(hi) >= 0)
             and np.all(lo <= hi)):
         raise ValueError("resample taps are not monotone")
     r_max = d_max = 0
     for t0 in range(0, n, tile):
-        o0, o1 = max(t0 - halo, 0), min(t0 + tile - 1 + halo, n - 1)
+        o0, o1 = t0, min(t0 + tile - 1, n - 1)
         d0, d1 = int(lo[o0]), int(hi[o1])
         r0, r1 = max(d0 - 1, 0), min(d1 + 1, n_s - 1)
         r_max, d_max = max(r_max, r1 - r0 + 1), max(d_max, d1 - d0 + 1)
     return r_max, d_max
 
 
-def _plan(h: int, w: int, scales: Tuple[float, ...], halo: int, device):
+def _plan(h: int, w: int, scales: Tuple[float, ...], device):
     """Per-scale kinds and sizes, the packed (index, weight) resample tables
-    on the device, and the shared-memory capacities (floats) of the R and D
-    regions for tiles with `halo`; cached per shape."""
-    key = (h, w, scales, halo, str(device))
+    on the device, and the shared-memory capacities (floats) of the branch
+    kernel's R and D regions; cached per shape."""
+    key = (h, w, scales, str(device))
     hit = _plan_cache.get(key)
     if hit is not None:
         return hit
@@ -149,12 +159,187 @@ def _plan(h: int, w: int, scales: Tuple[float, ...], halo: int, device):
         for tab in (to(h, hs), to(w, ws), back_h, back_w):
             idx.append(tab[0].reshape(-1))
             wgt.append(tab[1].reshape(-1))
-        rh, dh = _extent(back_h[0], h, hs, TILE[0], halo)
-        rw, dw = _extent(back_w[0], w, ws, TILE[1], halo)
+        rh, dh = _extent(back_h[0], h, hs, TILE[0])
+        rw, dw = _extent(back_w[0], w, ws, TILE[1])
         r_cap, d_cap = max(r_cap, rh * rw), max(d_cap, dh * dw)
     itab = torch.from_numpy(np.concatenate(idx or [np.zeros(1, np.int32)]))
     ftab = torch.from_numpy(np.concatenate(wgt or [np.zeros(1, np.float32)]))
     hit = (kinds, sizes, itab.to(device), ftab.to(device), r_cap, d_cap)
+    _plan_cache[key] = hit
+    return hit
+
+
+def _shift_op(n: int, e: int) -> np.ndarray:
+    """[n, n] shift: (S y)[r] = y[r + e], zero outside (the depthwise 3x3's
+    'same' padding at branch resolution)."""
+    return np.eye(n, k=e)
+
+
+def composed_ops(n: int, n_s: int, s: float) -> np.ndarray:
+    """[3, n, n] f64 operators of one axis of an identity or up scale's
+    branch, one per depthwise offset e = -1, 0, 1, so that
+
+        branch = sum_{ey,ex} tap[ey, ex] * M_h[ey] @ x @ M_w[ex]^T
+
+    with M[e] = back @ S_e @ to (S_e for the identity scale), S_e the
+    shift at branch resolution [n_s].  Built in f64 from the f32
+    interpolation matrices that the plain version multiplies by."""
+    if s < 1.0:
+        raise ValueError("composed operators are for identity and up scales")
+    shifts = [_shift_op(n if s == 1.0 else n_s, e) for e in (-1, 0, 1)]
+    if s == 1.0:
+        return np.stack(shifts)
+    back = _interp_matrix(n_s, n, True).astype(np.float64)       # [n, n_s]
+    to = _interp_matrix(n, n_s, True).astype(np.float64)         # [n_s, n]
+    return np.stack([back @ sh @ to for sh in shifts])
+
+
+def band_table(ops: np.ndarray, k: int = 0):
+    """Band form of `composed_ops` (or of any [E, n, n_src] operators):
+    (start int32 [n], weights f32 [n, E, K]) with ops[e, y, start[y] + j] =
+    weights[y, e, j]; K is the widest row's band over the offsets, or `k`
+    if larger.  A band may run past the source's end, where its weights
+    are 0.  Raises unless the starts are non-decreasing (the kernel bounds
+    a tile's source rows by its end rows)."""
+    nz = np.any(ops != 0, axis=0)
+    n, n_src = nz.shape
+    start = np.where(nz.any(1), nz.argmax(1), 0)
+    end = np.where(nz.any(1), n_src - 1 - nz[:, ::-1].argmax(1), 0)
+    k = max(k, int((end - start + 1).max()))
+    if np.any(np.diff(start) < 0):
+        raise ValueError("band starts are not monotone")
+    wts = np.zeros((n, ops.shape[0], k), np.float64)
+    for j in range(k):
+        col = start + j
+        ok = col < n_src
+        wts[ok, :, j] = ops[:, ok, col[ok]].T
+    return start.astype(np.int32), wts.astype(np.float32)
+
+
+def _kernel_k(k: int) -> int:
+    """The tail kernel's band width for a band of `k`: the smallest of
+    BAND_KS that holds it."""
+    for kk in BAND_KS:
+        if k <= kk:
+            return kk
+    raise ValueError(f"kernel limit: a band of {k} > {BAND_KS[-1]}")
+
+
+def scale_bands(h: int, w: int, scales: Sequence[float]):
+    """The tail kernel's bands per scale: (source size, (row start, row
+    weights [H, E, K]), (column start, column weights [W, E, K])).  An
+    identity or up scale reads x through the composed operators of its
+    E = 3 depthwise offsets, its band padded to the kernel's width; a down
+    scale reads the depthwise 3x3 of its adaptive-average plane (a pre-pass
+    computes both at branch resolution) through the bilinear resample back
+    alone: E = 1, K = 2."""
+    out = []
+    for s, (hs, ws) in zip(scales, branch_sizes(h, w, scales)):
+        if s < 1.0:
+            rows = _interp_matrix(hs, h, True).astype(np.float64)[None]
+            cols = _interp_matrix(ws, w, True).astype(np.float64)[None]
+            out.append(((hs, ws), band_table(rows, 2), band_table(cols, 2)))
+            continue
+        rows, cols = composed_ops(h, hs, s), composed_ops(w, ws, s)
+        k = _kernel_k(max(band_table(rows)[1].shape[2],
+                          band_table(cols)[1].shape[2]))
+        out.append(((h, w), band_table(rows, k), band_table(cols, k)))
+    return out
+
+
+def pyr_branches_band(x: torch.Tensor, weights: torch.Tensor,
+                      scales: Sequence[float]) -> torch.Tensor:
+    """The branch stack in the tail kernel's band form, in f32: for each
+    scale, the source plane's rows and columns gathered at each band start
+    and weighted by the band tables, one sum per depthwise offset pair (a
+    down scale's source is already the depthwise of its pooled plane).
+    Equals `pyr_branches_plain` up to f32 summation order."""
+    xf = x.to(torch.float32)
+    wf = weights.to(torch.float32)
+    h, w = x.shape[2], x.shape[3]
+    branches = []
+    for i, (s, (src_hw, (rs, rw), (cs, cw))) in enumerate(
+            zip(scales, scale_bands(h, w, scales))):
+        src = xf if s >= 1.0 else _dw3x3(adaptive_avg_pool(xf, src_hw),
+                                         wf[i])
+        k = rw.shape[2]
+
+        def gather(t, start, dim, n_src):
+            idx = torch.from_numpy(np.minimum(start[:, None] + np.arange(k),
+                                              n_src - 1).astype(np.int64))
+            return t.index_select(dim, idx.reshape(-1)).unflatten(
+                dim, (len(start), k))
+
+        rows = gather(src, rs, 2, src_hw[0])             # [B, P, h, k, Ws]
+        t = torch.einsum("bpykx,yek->bpeyx", rows, torch.from_numpy(rw))
+        cols = gather(t, cs, 4, src_hw[1])               # [B,P,3,h,w,k]
+        u = torch.einsum("bpeyxl,xfl->bpefyx", cols, torch.from_numpy(cw))
+        branches.append(u[:, :, 0, 0] if s < 1.0 else
+                        torch.einsum("bpefyx,efp->bpyx", u, wf[i]))
+    return torch.cat(branches, dim=1).to(x.dtype)
+
+
+def _tail_plan(h: int, w: int, scales: Tuple[float, ...], device):
+    """The tail kernel's per-tile tables on the device and their sizes;
+    cached per shape.  For each 16 x 30 output tile and each scale: the
+    column weights of the tile's 32 branch columns [3K][32] (0 outside the
+    image) and the row weights of its 18 branch rows [18][3K] (each row
+    padded to a multiple of 4; floats); the source region the scale reads
+    (r0, q0, rows, pitch: the union of the identity and up scales' regions
+    in x, or the down scale's own), each branch row's first staged element
+    and each branch column's first staged column (ints); then the x
+    region.  A down scale's weights are [2][32] and [18][2] (its bilinear
+    resample back).  Returns (K per scale, float tables [tiles, tile_f],
+    int tables [tiles, tile_i], x_cap, d_cap: the floats of one channel's
+    x region and of a down scale's region)."""
+    key = ("tail", h, w, scales, str(device))
+    hit = _plan_cache.get(key)
+    if hit is not None:
+        return hit
+    th, tw = TAIL_TILE
+    bh, bw = th + 2, tw + 2
+    bands = scale_bands(h, w, scales)
+    ks = [rw.shape[2] for _, (_, rw), _ in bands]
+    tab_f, tab_i = [], []
+    x_cap = d_cap = 1
+    for y0 in range(0, h, th):
+        gy = np.clip(np.arange(y0 - 1, y0 - 1 + bh), 0, h - 1)
+        ylo, yhi = max(y0 - 1, 0), min(y0 + th, h - 1)
+        for x0 in range(0, w, tw):
+            gx = np.arange(x0 - 1, x0 - 1 + bw)
+            col_in = (gx >= 0) & (gx < w)
+            gxc = np.clip(gx, 0, w - 1)
+            xlo, xhi = max(x0 - 1, 0), min(x0 + tw, w - 1)
+            regs = [(int(rs[ylo]), int(cs[xlo]), int(rs[yhi]) + k,
+                     int(cs[xhi]) + k)
+                    for (_, (rs, _), (cs, _)), k in zip(bands, ks)]
+            x_regs = [r for r, s in zip(regs, scales) if s >= 1.0]
+            xr = ((min(r[0] for r in x_regs), min(r[1] for r in x_regs),
+                   max(r[2] for r in x_regs), max(r[3] for r in x_regs))
+                  if x_regs else (0, 0, 0, 0))
+            fl, it = [], []
+            for s, k, reg, (_, (rs, rw), (cs, cw)) in zip(scales, ks, regs,
+                                                          bands):
+                r0, q0, r1, q1 = xr if s >= 1.0 else reg
+                pitch = q1 - q0
+                if s < 1.0:
+                    d_cap = max(d_cap, (r1 - r0) * pitch)
+                cwt = cw[gxc] * col_in[:, None, None]      # [32, E, K]
+                rwt = rw[gy].reshape(bh, -1)               # [18, E*K]
+                if s >= 1.0:  # rows padded to whole 16-byte words
+                    rwt = np.pad(rwt, ((0, 0), (0, -rwt.shape[1] % 4)))
+                fl += [cwt.reshape(bw, -1).T.reshape(-1), rwt.reshape(-1)]
+                it += [[r0, q0, r1 - r0, pitch], (rs[gy] - r0) * pitch,
+                       np.where(col_in, cs[gxc] - q0, 0)]
+            r0, q0, r1, q1 = xr
+            x_cap = max(x_cap, (r1 - r0) * (q1 - q0))
+            it.append([r0, q0, r1 - r0, q1 - q0])
+            tab_f.append(np.concatenate(fl).astype(np.float32))
+            tab_i.append(np.concatenate([np.asarray(v, np.int64)
+                                         for v in it]).astype(np.int32))
+    tab_f, tab_i = np.stack(tab_f), np.stack(tab_i)
+    hit = (ks, torch.from_numpy(tab_f).to(device),
+           torch.from_numpy(tab_i).to(device), x_cap, d_cap)
     _plan_cache[key] = hit
     return hit
 
@@ -165,10 +350,11 @@ def _group(p: int, per_ch: int, budget: int) -> int:
     return max(1, min(p, budget // per_ch))
 
 
-def _launch(fn, x, weights, scales, halo, out, *extra):
+def _launch(fn, x, weights, scales, out, extra, post):
     """Shared argument checks and launch of the two pyramid kernels; `extra`
-    goes between the taps and the scratch (the tail's params and O, then
-    the channel group size)."""
+    goes between the taps and the scratch (the branch stack's channel group
+    size; the tail's params, O, group size and band tables), `post` between
+    the scratch and the output (the shared-memory capacities)."""
     _cuda.require(x, "x", _DTYPES)
     b, p, h, w = x.shape
     s_n = len(scales)
@@ -176,8 +362,7 @@ def _launch(fn, x, weights, scales, halo, out, *extra):
         raise ValueError(f"kernel limit: S <= {MAX_S}")
     weights = weights.to(device=x.device, dtype=torch.float32).contiguous()
     _cuda.require(weights, "weights", (torch.float32,), (s_n, 3, 3, p))
-    kinds, sizes, itab, ftab, r_cap, d_cap = _plan(h, w, scales, halo,
-                                                   x.device)
+    kinds, sizes, itab, ftab, _, _ = _plan(h, w, scales, x.device)
     # the down scales' resampled planes (f32), filled by a pre-pass
     scratch = [torch.empty((b * p, hs, ws), dtype=torch.float32,
                            device=x.device) if k == _KIND_DOWN else None
@@ -190,7 +375,7 @@ def _launch(fn, x, weights, scales, halo, out, *extra):
         _cuda.ptr(itab), _cuda.ptr(ftab), _cuda.ptr(weights), *extra,
         (ctypes.c_void_p * s_n)(*[None if t is None else t.data_ptr()
                                   for t in scratch]),
-        r_cap, d_cap, _cuda.ptr(out), _cuda.stream(x))
+        *post, _cuda.ptr(out), _cuda.stream(x))
     _cuda.check(lib, err, fn)
     return out
 
@@ -205,11 +390,12 @@ def pyr_branches(x: torch.Tensor, weights: torch.Tensor,
     b, p, h, w = x.shape
     out = torch.empty((b, len(scales) * p, h, w), dtype=x.dtype,
                       device=x.device)
-    _, _, _, _, r_cap, d_cap = _plan(h, w, tuple(scales), 0, x.device)
+    _, _, _, _, r_cap, d_cap = _plan(h, w, tuple(scales), x.device)
     # half a block's shared memory: the kernel's registers let two blocks
     # share an SM, which beats staging more channels at once
     g = _group(p, 9 + TILE[0] * TILE[1] + r_cap + d_cap, SMEM_FLOATS // 2)
-    _launch("pyr_branches_launch", x, weights, tuple(scales), 0, out, g)
+    _launch("pyr_branches_launch", x, weights, tuple(scales), out, (g,),
+            (r_cap, d_cap))
     pyr_branches.launches += 1
     return out
 
@@ -241,18 +427,65 @@ def pyr_pool_fused_eval(x, dw_weights, aff1, merge_weights, aff2, cls_w,
                         for t in (aff1, merge_weights, aff2, cls_w, cls_b,
                                   aff3)])
     out = torch.empty((b, o, h, w), dtype=x.dtype, device=x.device)
-    _, _, _, _, r_cap, d_cap = _plan(h, w, tuple(scales), 1, x.device)
-    # all of a block's shared memory: the kernel's registers allow one
-    # block an SM
-    g = _group(p, 9 + (TILE[0] + 2) * (TILE[1] + 2) + r_cap + d_cap,
-               SMEM_FLOATS - params.numel())
-    _launch("pyr_tail_launch", x, dw_weights, tuple(scales), 1, out,
-            _cuda.ptr(params), o, g)
+    ks, tab_f, tab_i, x_cap, d_cap = _tail_plan(h, w, tuple(scales),
+                                                x.device)
+    g, _ = _tail_smem(p, o, scales, tab_f.shape[1], tab_i.shape[1], x_cap,
+                      d_cap)
+    # the scratch of the down scales: their depthwise planes at branch
+    # resolution, which the kernel's pre-pass fills
+    _launch("pyr_tail_launch", x, dw_weights, tuple(scales), out,
+            (_cuda.ptr(params), o, g, (ctypes.c_int * s_n)(*ks),
+             _cuda.ptr(tab_f), _cuda.ptr(tab_i), tab_f.shape[1],
+             tab_i.shape[1]), (x_cap, d_cap))
     pyr_pool_fused_eval.launches += 1
     return out
 
 
 pyr_pool_fused_eval.launches = 0
+
+
+def _tail_smem(p: int, o: int, scales: Sequence[float], tile_f: int,
+               tile_i: int, x_cap: int, d_cap: int):
+    """(channels a tail block stages together, its shared-memory bytes).
+    Outside the channel group a block holds its parameters (the merge taps
+    in rows of 12, the classifier in rows of P rounded up to 4 beside its
+    bias and affine) and taps, each region on a 16-byte word, each
+    thread's P merge sums and its tile's tables; per channel, its x region,
+    each down scale's region and two buffers of branch values of the tile
+    and its merge halo.  The group is as many channels as half of an SM's
+    shared memory holds, so that two 512-thread blocks share an SM (the
+    kernel's register bound)."""
+    bw, bh = TAIL_TILE[1] + 2, TAIL_TILE[0] + 2
+    sp_n = len(scales) * p
+
+    def up4(n):
+        return -(-n // 4) * 4
+
+    fixed = (up4(3 * sp_n + 3 * p) + up4(9 * sp_n) + 12 * sp_n
+             + o * (up4(p) + 4) + p * TAIL_THREADS + tile_f + tile_i)
+    per_ch = (x_cap + sum(1 for s in scales if s < 1.0) * d_cap
+              + 2 * bh * bw)
+    g = _group(p, per_ch, TAIL_SMEM_FLOATS - fixed)
+    return g, 4 * (fixed + g * per_ch)
+
+
+def tail_blocks_per_sm(x: torch.Tensor, p: int, o: int,
+                       scales: Sequence[float]) -> int:
+    """Blocks of the tail kernel that one SM holds at `x`'s shape, as
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor reports it for the
+    shared memory that `pyr_pool_fused_eval` gives a launch."""
+    _, _, h, w = x.shape
+    ks, tab_f, tab_i, x_cap, d_cap = _tail_plan(h, w, tuple(scales),
+                                                x.device)
+    _, smem = _tail_smem(p, o, scales, tab_f.shape[1], tab_i.shape[1],
+                         x_cap, d_cap)
+    blocks = ctypes.c_int(0)
+    lib = _lib()
+    err = lib.pyr_tail_occupancy(1 if x.dtype == torch.bfloat16 else 0,
+                                 max(k for k, s in zip(ks, scales)
+                                     if s >= 1.0), smem, ctypes.byref(blocks))
+    _cuda.check(lib, err, "pyr_tail_occupancy")
+    return blocks.value
 
 
 def _lib():
@@ -262,7 +495,13 @@ def _lib():
         head = [vp] + [ci] * 6 + [vp] * 6  # x, dtype..s_n, kinds..taps
         tail = [vp, ci, ci, vp, vp]        # scratch, r_cap, d_cap, out, stream
         lib.pyr_branches_launch.argtypes = head + [ci] + tail  # g
-        lib.pyr_tail_launch.argtypes = head + [vp, ci, ci] + tail  # params, O, g
-        lib.pyr_branches_launch.restype = ci
-        lib.pyr_tail_launch.restype = ci
+        # params, O, g, band K per scale, the tiles' float and int tables
+        # and their sizes; scratch, the x and down-scale regions' floats,
+        # out, stream
+        lib.pyr_tail_launch.argtypes = head + [vp, ci, ci, vp, vp, vp, ci,
+                                               ci] + [vp, ci, ci, vp, vp]
+        lib.pyr_tail_occupancy.argtypes = [ci, ci, ci, vp]
+        for fn in (lib.pyr_branches_launch, lib.pyr_tail_launch,
+                   lib.pyr_tail_occupancy):
+            fn.restype = ci
     return lib
