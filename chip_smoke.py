@@ -9,13 +9,14 @@ Phases (each prints a line; any failure raises and exits non-zero):
   2. build: compile every CUDA kernel of mspl_tpu_torch/csrc with nvcc,
      one process per source, all at once.
   3. kernels: each kernel against its plain PyTorch version at the main
-     path's shapes (fp32 first, then bf16; the pyramid-pool tail and the
-     logits resize also at odd shapes off the main path), the tail's band
-     widths and blocks per SM, then each kernel's time at batch 128
-     beside the plain version's, a library call's where one computes the
-     same function, and its bound on an H100 (memory at 3.35 TB/s, f32
-     arithmetic at 67 TFLOP/s, matrix products at the bf16 tensor-core
-     989 TFLOP/s; the largest of the three).
+     path's shapes (fp32 first, then bf16; the fused pass, the branch
+     stack, the pyramid-pool tail and the logits resize also at odd shapes
+     off the main path), the tail's band widths and blocks per SM, then
+     each kernel's time at batch 128 (the branch stack's also plane by
+     plane) beside the plain version's, a library call's where one
+     computes the same function, and its bound on an H100 (memory at
+     3.35 TB/s, f32 arithmetic at 67 TFLOP/s, matrix products at the bf16
+     tensor-core 989 TFLOP/s; the largest of the three).
   4. main path: three ESPNetv2-s2.0 sources in bf16 (CamVid 11, Cityscapes
      19, Forest 5 classes; random weights from a seed) at 256x480, batch
      128, through PseudoLabelGenerator (soft fusion, prob confidence,
@@ -161,9 +162,14 @@ def _affine(gen, n):
                         u() * 0.5])
 
 
-def pseudo_calls(b, dtype, gen):
-    logits = [_rand(gen, (b, c, *HW), 2.0, dtype) for _, c in SOURCES]
+def pseudo_calls(b, dtype, gen, hw=HW):
+    logits = [_rand(gen, (b, c, *hw), 2.0, dtype) for _, c in SOURCES]
     return [(logits,)]
+
+
+# a pixel count that is not a multiple of 4: the fused pass's planes then
+# start off a vector load's word and the kernel loads element by element
+PSEUDO_ODD = (3, (17, 29))
 
 
 def _pseudo_decided(logits, convs, mode, kc, conf, lbl_plain):
@@ -191,34 +197,51 @@ def check_pseudo(gen):
     convs = [label_conversion_matrix(n) for n, _ in SOURCES]
     kc = torch.full((3,), KC, device="cuda")
     errs = {}
-    for dtype, combos in ((torch.float32, [("soft", "prob"), ("soft", "entropy"),
-                                           ("hard", "prob"), ("hard", "entropy")]),
-                          (torch.bfloat16, [("soft", "prob")])):
-        (logits,), = pseudo_calls(8, dtype, gen)
-        for mode, conf_mode in combos:
-            got_l, got_c = pseudo_cm.fused_pseudo_cm(
-                logits, convs, kc, mode=mode, conf_mode=conf_mode)
-            want_l, want_c = pseudo_cm.fused_pseudo_cm_plain(
-                logits, convs, kc, mode=mode, conf_mode=conf_mode)
-            tag = f"fused_pseudo_cm {mode}/{conf_mode} {dtype}"
-            err = check_close(tag, got_c, want_c, atol=1e-5)
-            decided = _pseudo_decided(logits, convs, mode, KC, want_c, want_l)
-            bad = int(((got_l != want_l) & decided).sum())
-            if bad or decided.float().mean() < 0.99:
-                raise AssertionError(f"{tag}: {bad} decided labels differ "
-                                     f"({decided.float().mean():.4f} decided)")
-            errs[dtype] = max(errs.get(dtype, 0.0), err)
+    runs = [(torch.float32, combo, shape)
+            for shape in ((8, HW), PSEUDO_ODD)
+            for combo in (("soft", "prob"), ("soft", "entropy"),
+                          ("hard", "prob"), ("hard", "entropy"))]
+    runs += [(torch.bfloat16, ("soft", "prob"), shape)
+             for shape in ((8, HW), PSEUDO_ODD)]
+    for dtype, (mode, conf_mode), (b, hw) in runs:
+        (logits,), = pseudo_calls(b, dtype, gen, hw)
+        got_l, got_c = pseudo_cm.fused_pseudo_cm(
+            logits, convs, kc, mode=mode, conf_mode=conf_mode)
+        want_l, want_c = pseudo_cm.fused_pseudo_cm_plain(
+            logits, convs, kc, mode=mode, conf_mode=conf_mode)
+        tag = f"fused_pseudo_cm {mode}/{conf_mode} {dtype} {b}x{hw}"
+        err = check_close(tag, got_c, want_c, atol=1e-5)
+        decided = _pseudo_decided(logits, convs, mode, KC, want_c, want_l)
+        bad = int(((got_l != want_l) & decided).sum())
+        if bad or decided.float().mean() < 0.99:
+            raise AssertionError(f"{tag}: {bad} decided labels differ "
+                                 f"({decided.float().mean():.4f} decided)")
+        errs[dtype] = max(errs.get(dtype, 0.0), err)
     return errs
+
+
+BRANCH_SHAPES = ((16, 30), (32, 60), (64, 120))  # bu_dec_l1..l3's planes
 
 
 def branch_calls(b, dtype, gen):
     calls = []
     for _, c in SOURCES:
         p = proj_width(c)
-        for h, w in ((16, 30), (32, 60), (64, 120)):
+        for h, w in BRANCH_SHAPES:
             calls.append((_rand(gen, (b, p, h, w), 1.0, dtype),
                           _rand(gen, (5, 3, 3, p), 0.5), SCALES))
     return calls
+
+
+def branch_by_shape(calls):
+    """The branch kernel's ms a batch at each of its planes (the three
+    sources' calls at that shape), the least of two timings."""
+    out = {}
+    for hw in BRANCH_SHAPES:
+        sub = [a for a in calls if tuple(a[0].shape[2:]) == hw]
+        run = lambda: [pyrpool.pyr_branches(*a) for a in sub]  # noqa: E731
+        out[hw] = min(time_ms(run), time_ms(run))
+    return out
 
 
 def tail_calls(b, dtype, gen):
@@ -258,6 +281,16 @@ def tail_odd_calls(dtype, gen):
                       _rand(gen, (p, o), 0.5), _rand(gen, (o,), 0.1),
                       _affine(gen, o), scales))
     return calls
+
+
+def branch_odd_calls(dtype, gen):
+    """The branch stack at the tail's odd planes: spans that do not start on
+    a 16-byte word (stored element by element) and a 6-wide band, and the
+    tiny plane."""
+    return [(_rand(gen, (b, p, h, w), 1.0, dtype),
+             _rand(gen, (len(scales), 3, 3, p), 0.5), scales)
+            for (b, p, h, w), scales in (((2, 9, 37, 53), ODD_SCALES),
+                                         ((2, 8, 2, 3), SCALES))]
 
 
 def resize_odd_calls(dtype, gen):
@@ -568,8 +601,8 @@ def phase_kernels():
     errs = check_pseudo(gen)
     err16["fused_pseudo_cm"] = errs[torch.bfloat16]
     err16["pyr_branches"] = check_elementwise(
-        pyrpool.pyr_branches, pyrpool.pyr_branches_plain, branch_calls, gen,
-        1e-4, "pyr_branches")
+        pyrpool.pyr_branches, pyrpool.pyr_branches_plain,
+        with_odd(branch_calls, branch_odd_calls), gen, 1e-4, "pyr_branches")
     err16["pyr_pool_fused_eval"] = check_elementwise(
         pyrpool.pyr_pool_fused_eval, pyrpool.pyr_pool_fused_eval_plain,
         with_odd(tail_calls, tail_odd_calls), gen, 1e-4,
@@ -655,6 +688,11 @@ def phase_kernels():
               f"calls per main-path batch): kernel {k_ms:.3f} ms, plain "
               f"{p_ms:.3f} ms, library {lib_txt}, bound {b_ms:.3f} ms "
               f"({term}; {work_txt})", flush=True)
+        if name == "pyr_branches":
+            print("phase 3 time pyr_branches by plane (ms a batch, the "
+                  "three sources' calls): " + ", ".join(
+                      f"{h}x{w} {ms:.3f}" for (h, w), ms in
+                      branch_by_shape(calls).items()), flush=True)
         del calls
     return rows
 
@@ -757,8 +795,7 @@ def breakdown(gen, imgs_u8):
 # the kernels of mspl_tpu_torch/csrc, by name
 PORT_KERNELS = ("pseudo_cm_kernel", "pseudo_pm_kernel", "pyr_tail_kernel",
                 "down_prepass_kernel", "pyr_branches_kernel",
-                "down_scale_kernel", "resize_rows_kernel", "eesp_unit_kernel",
-                "branches_kernel")
+                "resize_rows_kernel", "eesp_unit_kernel", "branches_kernel")
 
 
 def profile_sweep(sweep, n_images: int, out_dir: str,

@@ -12,315 +12,30 @@
 //     3x3 merge with BN-affine + PReLU, and the 1x1 classifier with bias and
 //     a last affine + PReLU, emitting channel-major logits.
 //
-// Bound: operations for the tail, bytes for the branch stack: what has to
-// move is only the P-channel input and the output, but every output pixel
-// needs a few hundred multiply-adds across the five branches and the merge.
-// The largest branch (scale 2.0 of the classifier stage, 256x480 per plane)
-// does not fit a block's shared memory.
-//
-// Branch stack design: the output is cut into 16x32 tiles, one block of
-// 512 threads per tile and image, which takes the channels in groups of as
-// many as shared memory holds.  The kernel is bound by its instruction
-// count, so each staging loop works out a position's indices and resample
-// taps once for the whole group.  For each scale the block stages in shared
-// memory only the part of the branch-resolution plane its tile needs: the
-// resampled plane R (computed from x through L1 for the up scales; read from
-// a small global scratch for the down scales, which a pre-pass fills once
-// per plane because an adaptive-average bin can span ~10x10 inputs), the
-// depthwise 3x3 of it D, and the bilinear resample of D back to the tile.
-// Nothing of branch resolution goes to device memory for the up scales.
-// Resampling uses the (index, weight) form of the JAX package's own
-// interpolation and adaptive-average matrices.
-//
-// The fused tail (its own section below) composes each branch into banded
-// operators at source resolution instead, which the TPU kernel applies as
-// dense matrix products; it shares the down scales' pre-pass.  Both keep all
-// arithmetic in f32 and round each output once to the output dtype.
+// Both kernels apply each branch at source resolution.  For an identity or
+// up scale the branch is exactly
+//     branch = sum_{ey,ex} tap[ey,ex] * M_h[ey] @ x @ M_w[ex]^T
+// with M[e] = back @ S_e @ to (S_e for the identity scale), S_e the shift
+// by the tap offset e = -1, 0, 1 at branch resolution.  Each row of M[e] is
+// non-zero on a short band at every offset together (3 or 4 at the main
+// path's scales), so the branch value at (y, x) is a position-dependent
+// K x K stencil on x:
+//     v = sum_k sum_ey rw[y][ey][k] * sum_l B[ey][l] * x[rs[y]+k][cs[x]+l],
+//     B[ey][l] = sum_ex tap[ey,ex] * cw[x][ex][l],
+// with (rs, rw) and (cs, cw) the band tables (ops/pyrpool.py scale_bands,
+// f64 products rounded once to f32).  Nothing at branch resolution is
+// staged.  A down scale's plane is small (64x120 and 13x24 for the tail,
+// 32x60 and 7x12 at most for the branch stack), so one pre-pass computes
+// its adaptive average and the depthwise 3x3 of that at branch resolution,
+// and the kernels apply the bilinear resample back alone, a 2 x 2 stencil.
+// Both keep all arithmetic in f32 and round each output once to the output
+// dtype.  The TPU kernel's own form of the same idea is _composed_up_mats.
 #include "common.cuh"
 
 #define MAX_S 8
 #define MAX_P 16
-#define TH 16
-#define TW 32
-#define NT (TH * TW)
 
 enum { KIND_ID = 0, KIND_UP = 1, KIND_DOWN = 2 };
-
-struct Scale {
-  int kind, hs, ws;
-  const int* to_hi;  const float* to_hw;  // [hs, 2]: UP taps, DOWN [lo, hi) bins
-  const int* to_wi;  const float* to_ww;  // [ws, 2]
-  const int* bk_hi;  const float* bk_hw;  // [H, 2]: bilinear taps back
-  const int* bk_wi;  const float* bk_ww;  // [W, 2]
-  const float* rg;   // DOWN: the resampled planes [B*P, hs, ws] (f32)
-};
-
-struct PyrArgs {
-  const void* x;        // [B, P, H, W]
-  void* out;            // branches [B, S*P, H, W]
-  const float* taps;    // depthwise taps [S, 3, 3, P]
-  Scale sc[MAX_S];
-  int b, p, h, w, s_n;
-  int tiles_x;
-  int r_cap, d_cap;     // shared-memory floats of one channel's R and D
-  int g;                // channels staged together
-};
-
-template <typename S>
-__device__ __forceinline__ float dw3x3(const S* __restrict__ src, int h, int w,
-                                       int y, int x, const float tk[9]) {
-  float acc = 0.f;
-#pragma unroll
-  for (int ky = 0; ky < 3; ++ky) {
-    const int yy = y + ky - 1;
-    if (yy < 0 || yy >= h) continue;
-#pragma unroll
-    for (int kx = 0; kx < 3; ++kx) {
-      const int xx = x + kx - 1;
-      if (xx < 0 || xx >= w) continue;
-      acc += tk[ky * 3 + kx] * to_f32(src[yy * w + xx]);
-    }
-  }
-  return acc;
-}
-
-// The two (index, weight) taps of row i of a packed resample table.
-struct Taps {
-  int a, b;
-  float wa, wb;
-};
-
-__device__ __forceinline__ Taps taps_at(const int* idx, const float* wgt,
-                                        int i) {
-  return {idx[2 * i], idx[2 * i + 1], wgt[2 * i], wgt[2 * i + 1]};
-}
-
-// Scale s's branch of channels c0 .. c0+nc-1 of one image at the tile
-// (y0, x0) and its halo, into bv[g * BH*BW + i]: back(dw3x3(to(plane))),
-// with channel c's affine + PReLU from aff1 (concat channel si*P + c) when
-// aff1 is given, and 0 outside the image.  The group's depthwise taps are
-// staged in s_tk; the R and D regions of channel g sit at g * r_cap and
-// g * d_cap.  Every loop runs over positions and, inside, over the group's
-// channels, so a position's index arithmetic and resample taps are worked
-// out once for all of them.  Ends synchronized.
-template <typename T, int HALO>
-__device__ void branch_group(const T* __restrict__ img, int64_t plane0,
-                             int c0, int nc, int si, int p, const Scale& s,
-                             const float* __restrict__ taps, float* s_tk,
-                             int y0, int x0, int h, int w, float* bv,
-                             float* sr, int r_cap, float* sd, int d_cap,
-                             const float* aff1, int sp_n, int tid) {
-  constexpr int BH = TH + 2 * HALO, BW = TW + 2 * HALO, BN = BH * BW;
-  const int64_t hw = (int64_t)h * w;
-  const T* src = img + c0 * hw;
-  for (int k = tid; k < nc * 9; k += NT)
-    s_tk[k] = taps[(si * 9 + k % 9) * p + c0 + k / 9];
-  if (s.kind == KIND_ID) {
-    __syncthreads();
-    for (int j = tid; j < BN; j += NT) {
-      const int gy = y0 - HALO + j / BW, gx = x0 - HALO + j % BW;
-      const bool in = gy >= 0 && gy < h && gx >= 0 && gx < w;
-      for (int g = 0; g < nc; ++g) {
-        float v = 0.f;
-        if (in) {
-          v = dw3x3(src + g * hw, h, w, gy, gx, s_tk + g * 9);
-          if (aff1) {
-            const int ch = si * p + c0 + g;
-            v = prelu(v * aff1[ch] + aff1[sp_n + ch], aff1[2 * sp_n + ch]);
-          }
-        }
-        bv[g * BN + j] = v;
-      }
-    }
-    __syncthreads();
-    return;
-  }
-  // the branch-resolution footprint of the region's in-image pixels (the
-  // tap tables are monotone, so the end rows/columns bound it)
-  const int oy0 = max(y0 - HALO, 0), oy1 = min(y0 + TH - 1 + HALO, h - 1);
-  const int ox0 = max(x0 - HALO, 0), ox1 = min(x0 + TW - 1 + HALO, w - 1);
-  const int dy0 = s.bk_hi[2 * oy0], dy1 = s.bk_hi[2 * oy1 + 1];
-  const int dx0 = s.bk_wi[2 * ox0], dx1 = s.bk_wi[2 * ox1 + 1];
-  const int ry0 = max(dy0 - 1, 0), ry1 = min(dy1 + 1, s.hs - 1);
-  const int rx0 = max(dx0 - 1, 0), rx1 = min(dx1 + 1, s.ws - 1);
-  const int rw = rx1 - rx0 + 1, rn = (ry1 - ry0 + 1) * rw;
-  for (int j = tid; j < rn; j += NT) {
-    const int ry = ry0 + j / rw, rx = rx0 + j % rw;
-    if (s.kind == KIND_UP) {
-      // bilinear up-resample at branch position (ry, rx), H first
-      const Taps ty = taps_at(s.to_hi, s.to_hw, ry);
-      const Taps tx = taps_at(s.to_wi, s.to_ww, rx);
-      for (int g = 0; g < nc; ++g) {
-        const T* x = src + g * hw;
-        const float ca = ty.wa * to_f32(x[ty.a * w + tx.a]) +
-                         ty.wb * to_f32(x[ty.b * w + tx.a]);
-        const float cb = ty.wa * to_f32(x[ty.a * w + tx.b]) +
-                         ty.wb * to_f32(x[ty.b * w + tx.b]);
-        sr[g * r_cap + j] = tx.wa * ca + tx.wb * cb;
-      }
-    } else {
-      const float* rg = s.rg + ((plane0 + c0) * s.hs + ry) * s.ws + rx;
-      for (int g = 0; g < nc; ++g) sr[g * r_cap + j] = rg[(int64_t)g * s.hs * s.ws];
-    }
-  }
-  __syncthreads();
-  const int dwid = dx1 - dx0 + 1, dn = (dy1 - dy0 + 1) * dwid;
-  for (int j = tid; j < dn; j += NT) {
-    const int gy = dy0 + j / dwid, gx = dx0 + j % dwid;
-    // the 3x3 window's top-left in R, and which of its rows and columns
-    // lie inside the branch plane (zero 'same' padding)
-    const int r0 = (gy - 1 - ry0) * rw + (gx - 1 - rx0);
-    bool vy[3], vx[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      vy[k] = gy + k - 1 >= 0 && gy + k - 1 < s.hs;
-      vx[k] = gx + k - 1 >= 0 && gx + k - 1 < s.ws;
-    }
-    for (int g = 0; g < nc; ++g) {
-      const float* r = sr + g * r_cap + r0;
-      const float* tk = s_tk + g * 9;
-      float acc = 0.f;
-#pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
-        if (!vy[ky]) continue;
-#pragma unroll
-        for (int kx = 0; kx < 3; ++kx)
-          if (vx[kx]) acc += tk[ky * 3 + kx] * r[ky * rw + kx];
-      }
-      sd[g * d_cap + j] = acc;
-    }
-  }
-  __syncthreads();
-  for (int j = tid; j < BN; j += NT) {
-    const int gy = y0 - HALO + j / BW, gx = x0 - HALO + j % BW;
-    const bool in = gy >= 0 && gy < h && gx >= 0 && gx < w;
-    Taps ty = {0, 0, 0.f, 0.f}, tx = ty;
-    if (in) {
-      ty = taps_at(s.bk_hi, s.bk_hw, gy);
-      tx = taps_at(s.bk_wi, s.bk_ww, gx);
-    }
-    const int ya = (ty.a - dy0) * dwid, yb = (ty.b - dy0) * dwid;
-    const int xa = tx.a - dx0, xb = tx.b - dx0;
-    for (int g = 0; g < nc; ++g) {
-      float v = 0.f;
-      if (in) {
-        const float* d = sd + g * d_cap;
-        v = tx.wa * (ty.wa * d[ya + xa] + ty.wb * d[yb + xa]) +
-            tx.wb * (ty.wa * d[ya + xb] + ty.wb * d[yb + xb]);
-        if (aff1) {
-          const int ch = si * p + c0 + g;
-          v = prelu(v * aff1[ch] + aff1[sp_n + ch], aff1[2 * sp_n + ch]);
-        }
-      }
-      bv[g * BN + j] = v;
-    }
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ void load_scales(const PyrArgs& a, Scale* s_sc,
-                                            int tid) {
-#pragma unroll
-  for (int i = 0; i < MAX_S; ++i)
-    if (tid == i) s_sc[i] = a.sc[i];
-}
-
-// Branch stack: grid (tiles, B); channels are staged a.g at a time; out
-// [B, S*P, H, W].
-template <typename T>
-__global__ void __launch_bounds__(NT) pyr_branches_kernel(PyrArgs a) {
-  extern __shared__ float smem[];
-  __shared__ Scale s_sc[MAX_S];
-  const int tid = threadIdx.y * TW + threadIdx.x;
-  load_scales(a, s_sc, tid);
-  __syncthreads();
-  const int p = a.p, G = a.g;
-  float* s_tk = smem;
-  float* bv = s_tk + 9 * G;
-  float* sr = bv + G * NT;
-  float* sd = sr + G * a.r_cap;
-  const int b = blockIdx.y;
-  const int y0 = (blockIdx.x / a.tiles_x) * TH, x0 = (blockIdx.x % a.tiles_x) * TW;
-  const int oy = y0 + threadIdx.y, ox = x0 + threadIdx.x;
-  const bool valid = oy < a.h && ox < a.w;
-  const int64_t hw = (int64_t)a.h * a.w;
-  const int64_t plane0 = (int64_t)b * p;
-  const T* img = reinterpret_cast<const T*>(a.x) + plane0 * hw;
-  T* out = reinterpret_cast<T*>(a.out) + (int64_t)b * a.s_n * p * hw +
-           (int64_t)oy * a.w + ox;
-  for (int si = 0; si < a.s_n; ++si) {
-    for (int c0 = 0; c0 < p; c0 += G) {
-      const int nc = min(G, p - c0);
-      // the next group writes bv only after a barrier that every thread
-      // reaches after its stores below
-      branch_group<T, 0>(img, plane0, c0, nc, si, p, s_sc[si], a.taps, s_tk,
-                         y0, x0, a.h, a.w, bv, sr, a.r_cap, sd, a.d_cap,
-                         nullptr, 0, tid);
-      if (valid)
-        for (int g = 0; g < nc; ++g)
-          out[(int64_t)(si * p + c0 + g) * hw] = from_f32<T>(bv[g * NT + tid]);
-    }
-  }
-}
-
-// Adaptive-average resample of every [H, W] plane to [hs, ws] (f32), the
-// down scales' pre-pass: one thread per branch-resolution element.
-template <typename T>
-__global__ void __launch_bounds__(256)
-down_scale_kernel(const T* __restrict__ x, float* __restrict__ r,
-                  int64_t total, int h, int w, int hs, int ws,
-                  const int* __restrict__ hidx, const float* __restrict__ hwgt,
-                  const int* __restrict__ widx, const float* __restrict__ wwgt) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int rx = (int)(i % ws);
-  const int64_t t = i / ws;
-  const int ry = (int)(t % hs);
-  const T* src = x + (t / hs) * h * w;
-  const int ylo = hidx[2 * ry], yhi = hidx[2 * ry + 1];
-  const int xlo = widx[2 * rx], xhi = widx[2 * rx + 1];
-  const float wy = hwgt[2 * ry], wx = wwgt[2 * rx];
-  float v = 0.f;
-  for (int xx = xlo; xx < xhi; ++xx) {
-    float col = 0.f;
-    for (int yy = ylo; yy < yhi; ++yy) col += wy * to_f32(src[yy * w + xx]);
-    v += wx * col;
-  }
-  r[i] = v;
-}
-
-// Fill the scale table from the packed host tables: per non-identity scale,
-// in order, the to-scale H and W tables then the back H and W tables, two
-// entries per row; launch the down scales' pre-pass into `scratch`.
-template <typename T>
-static int prepare(PyrArgs& a, const int* kinds, const int* hs, const int* ws,
-                   const int* itab, const float* ftab, float* const* scratch,
-                   cudaStream_t st) {
-  int64_t off = 0;
-  for (int si = 0; si < a.s_n; ++si) {
-    Scale& s = a.sc[si];
-    s.kind = kinds[si];
-    s.hs = hs[si];
-    s.ws = ws[si];
-    s.rg = nullptr;
-    if (s.kind == KIND_ID) continue;
-    s.to_hi = itab + off;            s.to_hw = ftab + off;
-    s.to_wi = s.to_hi + 2 * s.hs;    s.to_ww = s.to_hw + 2 * s.hs;
-    s.bk_hi = s.to_wi + 2 * s.ws;    s.bk_hw = s.to_ww + 2 * s.ws;
-    s.bk_wi = s.bk_hi + 2 * a.h;     s.bk_ww = s.bk_hw + 2 * a.h;
-    off += 2 * ((int64_t)s.hs + s.ws + a.h + a.w);
-    if (s.kind == KIND_DOWN) {
-      s.rg = scratch[si];
-      const int64_t n = (int64_t)a.b * a.p * s.hs * s.ws;
-      down_scale_kernel<T><<<mspl_blocks(n, 256), 256, 0, st>>>(
-          reinterpret_cast<const T*>(a.x), scratch[si], n, a.h, a.w, s.hs,
-          s.ws, s.to_hi, s.to_hw, s.to_wi, s.to_ww);
-      const cudaError_t e = cudaGetLastError();
-      if (e != cudaSuccess) return (int)e;
-    }
-  }
-  return 0;
-}
 
 // Allow `kernel` `smem` bytes of dynamic shared memory (above 48 KB only
 // on request).
@@ -333,67 +48,535 @@ static cudaError_t launch_smem(K kernel, size_t smem) {
       : cudaSuccess;
 }
 
-template <typename K>
-static int launch(K kernel, dim3 grid, size_t smem, cudaStream_t st,
-                  const PyrArgs& a) {
-  const cudaError_t e = launch_smem(kernel, smem);
+// ---------------------------------------------------------------------------
+// The down scales' pre-pass, shared by both kernels
+// ---------------------------------------------------------------------------
+
+struct DownScale {
+  int si;                   // the scale's index (its depthwise taps)
+  int hs, ws;               // its branch plane
+  const int* hb;            // adaptive-average bins [hs, 2] ([lo, hi)) and
+  const float* hbw;         // their weights, of the rows
+  const int* wb;            // and [ws, 2] of the columns
+  const float* wbw;
+  float* d;                 // the depthwise planes [B*P, hs, ws] (f32), or
+                            // null: the kernel resamples them back itself
+  const int* rs;            // then the resample back's bands: row starts
+  const float* rw;          // [H] and weights [H][2], column starts [W]
+  const int* cs;            // and weights [W][2]
+  const float* cw;
+};
+
+struct DownArgs {
+  const void* x;            // [B, P, H, W]
+  const float* taps;        // [S, 3, 3, P]
+  void* out;                // the branch stack [B, S*P, H, W], or null
+  DownScale sc[MAX_S];
+  int n, s_n, p, h, w;      // n down scales of the S
+  int pool;                 // floats of the largest pooled plane
+};
+
+// The down scales of a launch, from the packed host tables (per down scale
+// in order: its row bins then its column bins, two entries a bin) and one
+// scratch buffer per scale (null for the others; or no scratch at all).
+static DownArgs down_args(const void* x, const float* taps, int p, int h,
+                          int w, int s_n, const int* kinds, const int* hs,
+                          const int* ws, const int* itab, const float* ftab,
+                          void* const* scratch) {
+  DownArgs d = {};
+  d.x = x; d.taps = taps; d.s_n = s_n; d.p = p; d.h = h; d.w = w;
+  int64_t off = 0;
+  for (int si = 0; si < s_n; ++si) {
+    if (kinds[si] != KIND_DOWN) continue;
+    DownScale& s = d.sc[d.n++];
+    s.si = si; s.hs = hs[si]; s.ws = ws[si];
+    s.hb = itab + off;          s.hbw = ftab + off;
+    s.wb = s.hb + 2 * s.hs;     s.wbw = s.hbw + 2 * s.hs;
+    s.d = scratch ? reinterpret_cast<float*>(scratch[si]) : nullptr;
+    off += 2 * ((int64_t)s.hs + s.ws);
+    if (s.hs * s.ws > d.pool) d.pool = s.hs * s.ws;
+  }
+  return d;
+}
+
+// Outputs x0 .. x0+m-1 of a row at dst: one 16-byte store where the 8 fill
+// whole aligned words, else the widest aligned stores, else one by one.
+template <typename T>
+__device__ __forceinline__ void store_run(T* dst, const float v[8], int m) {
+  const uintptr_t ad = reinterpret_cast<uintptr_t>(dst);
+  if constexpr (sizeof(T) == 2) {
+    if (m == 8 && (ad & 3) == 0) {
+      uint4 u;
+      __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        q[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+      if ((ad & 15) == 0) {
+        *reinterpret_cast<uint4*>(dst) = u;
+      } else if ((ad & 7) == 0) {
+        reinterpret_cast<uint2*>(dst)[0] = make_uint2(u.x, u.y);
+        reinterpret_cast<uint2*>(dst)[1] = make_uint2(u.z, u.w);
+      } else {
+        unsigned int* d4 = reinterpret_cast<unsigned int*>(dst);
+        d4[0] = u.x; d4[1] = u.y; d4[2] = u.z; d4[3] = u.w;
+      }
+      return;
+    }
+  } else {
+    if (m == 8 && (ad & 15) == 0) {
+      reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+      reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (j < m) dst[j] = from_f32<T>(v[j]);
+}
+
+// For every down scale, the adaptive average of each [H, W] plane to
+// [hs, ws] (H bins first, then W, as the plain version multiplies) and the
+// depthwise 3x3 of that (zero 'same' padding, channel c's taps).  A block
+// takes one plane and every down scale in turn: each warp pools whole rows
+// (the lanes read x's rows coalesced, the H bin's sum kept in a per-warp
+// row, then the row's W bins) and the block holds the pooled plane in
+// shared memory.  The tail's pre-pass (BACK false) writes the depthwise
+// plane to the scale's D planes, which the tail kernel resamples.  The
+// branch stack's blocks of it (BACK true) keep it in shared memory and
+// write the branch itself: the bilinear resample back to [H, W] through
+// the bands, 8 outputs a thread from the 2 x 2 taps, with 16-byte stores
+// where a row's alignment allows, channel si*P + c of the output.  A block
+// of PP_WARPS warps; sm holds the pooled plane (BACK: and its depthwise)
+// and a row of H sums a warp.
+template <typename T, bool BACK, int PP_WARPS>
+__device__ __forceinline__ void down_plane(const DownArgs& a, int64_t plane,
+                                           float* sm) {
+  float* pooled = sm;                            // [hs][ws]
+  float* dp = sm + a.pool;                       // BACK: its depthwise
+  float* row = sm + (BACK ? 2 : 1) * a.pool + (threadIdx.x / 32) * a.w;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int c = (int)(plane % a.p);
+  const T* src = reinterpret_cast<const T*>(a.x) + plane * a.h * a.w;
+  for (int i = 0; i < a.n; ++i) {
+    const DownScale& s = a.sc[i];
+    const int hs = s.hs, ws = s.ws;
+    for (int r = warp; r < hs; r += PP_WARPS) {
+      const int y0 = s.hb[2 * r], y1 = s.hb[2 * r + 1];
+      const float wy = s.hbw[2 * r];
+      // eight columns a lane at a time, their loads in flight together
+      for (int x0 = lane; x0 < a.w; x0 += 8 * 32) {
+        float acc[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+#pragma unroll 4
+        for (int y = y0; y < y1; ++y) {
+          const T* in = src + y * a.w;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (x0 + 32 * j < a.w) acc[j] += wy * to_f32(in[x0 + 32 * j]);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (x0 + 32 * j < a.w) row[x0 + 32 * j] = acc[j];
+      }
+      __syncwarp();
+      for (int q = lane; q < ws; q += 32) {
+        const int x0 = s.wb[2 * q], x1 = s.wb[2 * q + 1];
+        const float wx = s.wbw[2 * q];
+        float v = 0.f;
+        for (int x = x0; x < x1; ++x) v += wx * row[x];
+        pooled[r * ws + q] = v;
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+    const float* tk = a.taps + s.si * 9 * a.p + c;
+    float* d = BACK ? dp : s.d + plane * hs * ws;
+    for (int r = warp; r < hs; r += PP_WARPS)
+      for (int q = lane; q < ws; q += 32) {
+        float acc = 0.f;
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky) {
+          const int yy = r + ky - 1;
+          if (yy < 0 || yy >= hs) continue;
+#pragma unroll
+          for (int kx = 0; kx < 3; ++kx) {
+            const int xx = q + kx - 1;
+            if (xx < 0 || xx >= ws) continue;
+            acc += tk[(ky * 3 + kx) * a.p] * pooled[yy * ws + xx];
+          }
+        }
+        d[r * ws + q] = acc;
+      }
+    if (BACK) {
+      // a thread keeps one chunk of 8 columns (their taps in registers)
+      // and walks every groups-th row
+      __syncthreads();
+      const int w = a.w, chunks = (w + 7) / 8;
+      const int groups = max(1, PP_WARPS * 32 / chunks);
+      T* out = reinterpret_cast<T*>(a.out) +
+               ((plane - c) * a.s_n + (int64_t)s.si * a.p + c) * a.h * w;
+      for (int it = threadIdx.x; it < chunks * groups; it += PP_WARPS * 32) {
+        const int g = it / chunks, x0 = (it - g * chunks) * 8;
+        const int m = min(8, w - x0);
+        int qa[8], qb[8];
+        float wa[8], wb[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int x = min(x0 + j, w - 1);
+          qa[j] = s.cs[x];
+          qb[j] = min(qa[j] + 1, ws - 1);
+          wa[j] = s.cw[2 * x];
+          wb[j] = s.cw[2 * x + 1];
+        }
+        for (int y = g; y < a.h; y += groups) {
+          const int r = s.rs[y];
+          const float* ra = dp + r * ws;
+          const float* rn = dp + min(r + 1, hs - 1) * ws;
+          const float2 wr = reinterpret_cast<const float2*>(s.rw)[y];
+          float v[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            v[j] = wr.x * (wa[j] * ra[qa[j]] + wb[j] * ra[qb[j]]) +
+                   wr.y * (wa[j] * rn[qa[j]] + wb[j] * rn[qb[j]]);
+          store_run<T>(out + (int64_t)y * w + x0, v, m);
+        }
+      }
+    }
+    __syncthreads();  // before the next scale overwrites the pooled plane
+  }
+}
+
+// The tail's pre-pass: a block a plane.
+#define TAIL_PP_WARPS 8
+template <typename T>
+__global__ void __launch_bounds__(TAIL_PP_WARPS * 32)
+down_prepass_kernel(const __grid_constant__ DownArgs a) {
+  extern __shared__ float sm[];
+  down_plane<T, false, TAIL_PP_WARPS>(a, blockIdx.x, sm);
+}
+
+// Launch the tail's pre-pass over `planes` planes (nothing without down
+// scales).
+template <typename T>
+static cudaError_t launch_prepass(const DownArgs& d, int64_t planes,
+                                  cudaStream_t st) {
+  if (!d.n || !planes) return cudaSuccess;
+  const size_t smem = sizeof(float) * ((size_t)d.pool + TAIL_PP_WARPS * d.w);
+  const cudaError_t e = launch_smem(down_prepass_kernel<T>, smem);
+  if (e != cudaSuccess) return e;
+  down_prepass_kernel<T><<<(unsigned)planes, TAIL_PP_WARPS * 32, smem, st>>>(
+      d);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Branch stack: every branch as banded stencils over full-width row bands
+// ---------------------------------------------------------------------------
+//
+// Bound: bytes.  The output is S times the input (0.387 GB a main-path
+// batch in bf16), against ~75 f32 multiply-adds an output pixel and channel
+// over the five scales.  One launch, two kinds of block: the first B*P
+// blocks each write the down scales' branches of one plane whole
+// (down_plane), the others the identity and up scales' branches of a band;
+// nothing passes between them, so the pooling's latency overlaps the bands'
+// work.  A band block takes `rb` output rows of one (image, channel) plane
+// across its whole width.  It first copies the
+// rows of x that the bands read into shared memory, as f32 with eight loads
+// in flight a thread: a contiguous run of the plane, staged flat (zero past
+// the plane's end and in a pad after it, where the bands' weights are 0
+// too).  A thread then takes one output column and a run of `rsub` rows.
+// Per scale it folds the channel's taps into its column's weights,
+// B[ey][l] (3K registers), keeps the column sums u[k][ey] = sum_l B[ey][l]
+// x[r+k][cs+l] of the K source rows that the current row's band covers as
+// a window in registers, slid down as the row starts advance (they are
+// non-decreasing), and forms each output as sum_k sum_ey rw[y][ey][k]
+// u[k][ey]: 3K multiply-adds a source row and 3K an output, the row weights
+// read as 16-byte words, no division.  Each scale's outputs go to shared
+// memory; after the last scale the block writes each scale's span of rb x W
+// contiguous elements with 16-byte stores (element by element where a span
+// does not start on a 16-byte word or does not fill whole words).  The grid
+// gives 2048 to 5760 blocks of 4 warps at the main path's planes.  The
+// host packs the launch into one int record (ops/pyrpool.py
+// _branch_record), so a call costs one short ctypes call.
+#define BR_NT 128  // threads of a branch-stack block
+
+struct BranchScale {
+  int k;                    // band width (3, 4 or 6; 2 for a down scale)
+  int down;                 // a down scale: the pre-pass writes its branch
+  const int* rs;            // [H] row starts in the source plane
+  const float* rw;          // [H][rwp] row weights [E][K] (rwp = E*K, x-
+                            // sourced scales padded to a multiple of 4)
+  const int* cs;            // [W] column starts
+  const float* cw;          // [W][E*K] column weights [E][K]
+};
+
+struct BranchArgs {
+  const void* x;            // [B, P, H, W]
+  void* out;                // [B, S*P, H, W]
+  const float* taps;        // [S, 3, 3, P]
+  BranchScale sc[MAX_S];
+  DownArgs down;            // the down scales (their blocks come first)
+  int down_blocks;          // B*P with down scales, else 0
+  int bands;                // bands a plane
+  int p, h, w, s_n;
+  int rb;                   // output rows of a band
+  int nsub, rsub;           // row runs a column is cut into, rows a run
+  int out_cap;              // elements of a scale's staged outputs (whole
+                            // 16-byte words)
+};
+
+// Elements [e0, e0 + n) of a plane of `total` elements into dst[0 .. n) as
+// f32, zero past the plane's end; eight loads in flight a thread.
+template <typename S>
+__device__ __forceinline__ void stage_run(const S* __restrict__ src,
+                                          int64_t total, int64_t e0, int n,
+                                          float* dst, int tid) {
+  for (int i0 = tid; i0 < n; i0 += 8 * BR_NT) {
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * BR_NT;
+      v[u] = i < n && e0 + i < total ? to_f32(src[e0 + i]) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (i0 + u * BR_NT < n) dst[i0 + u * BR_NT] = v[u];
+  }
+}
+
+// The 3 column sums of one source row: u[e] = sum_l bl[e][l] * q[l].
+template <int K>
+__device__ __forceinline__ void col_sums(const float* q, float bl[3][K],
+                                         float u[3]) {
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+#pragma unroll
+  for (int l = 0; l < K; ++l) {
+    const float v = q[l];
+    a0 += bl[0][l] * v;
+    a1 += bl[1][l] * v;
+    a2 += bl[2][l] * v;
+  }
+  u[0] = a0; u[1] = a1; u[2] = a2;
+}
+
+// An identity or up scale's outputs of column x, rows ya .. yb-1 of the
+// band at y0, into o[yy * w], from the staged x rows (source row r at
+// s_x + (r - r0) * w); tk points at the channel's taps (P apart).
+template <int K, typename T>
+__device__ __forceinline__ void branch_x(const BranchScale& s,
+                                         const float* tk, int p,
+                                         const float* s_x, int r0, int x,
+                                         int y0, int ya, int yb, T* o,
+                                         int w) {
+  constexpr int RWP = (3 * K + 3) & ~3;
+  float bl[3][K];
+  {
+    const float* cw = s.cw + x * 3 * K;
+#pragma unroll
+    for (int e = 0; e < 3; ++e) {
+      const float t0 = tk[(3 * e) * p], t1 = tk[(3 * e + 1) * p],
+                  t2 = tk[(3 * e + 2) * p];
+#pragma unroll
+      for (int l = 0; l < K; ++l)
+        bl[e][l] = t0 * cw[l] + t1 * cw[K + l] + t2 * cw[2 * K + l];
+    }
+  }
+  const float* col = s_x + s.cs[x];
+  int cur = s.rs[y0 + ya];
+  float u[K][3];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    col_sums<K>(col + (cur + k - r0) * w, bl, u[k]);
+  for (int yy = ya; yy < yb; ++yy) {
+    const int y = y0 + yy;
+    const int r = s.rs[y];
+    while (cur < r) {  // slide the window down one source row
+#pragma unroll
+      for (int k = 0; k + 1 < K; ++k) {
+        u[k][0] = u[k + 1][0];
+        u[k][1] = u[k + 1][1];
+        u[k][2] = u[k + 1][2];
+      }
+      ++cur;
+      col_sums<K>(col + (cur + K - 1 - r0) * w, bl, u[K - 1]);
+    }
+    float wr[RWP];  // the row's weights [3][K], as 16-byte loads
+#pragma unroll
+    for (int q = 0; q < RWP / 4; ++q) {
+      const float4 t4 = reinterpret_cast<const float4*>(s.rw + y * RWP)[q];
+      wr[4 * q] = t4.x; wr[4 * q + 1] = t4.y;
+      wr[4 * q + 2] = t4.z; wr[4 * q + 3] = t4.w;
+    }
+    float v = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      v += wr[k] * u[k][0] + wr[K + k] * u[k][1] + wr[2 * K + k] * u[k][2];
+    o[yy * w] = from_f32<T>(v);
+  }
+}
+
+// grid (down_blocks + bands * B * P), block BR_NT; KMAX is the widest band
+// of the launch's x-sourced scales (4 or 6): an instance holds only the
+// widths up to it.
+template <typename T, int KMAX>
+__global__ void __launch_bounds__(BR_NT)
+pyr_branches_kernel(const __grid_constant__ BranchArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if ((int)blockIdx.x < a.down_blocks) {
+    down_plane<T, true, BR_NT / 32>(a.down, blockIdx.x,
+                                    reinterpret_cast<float*>(smem_raw));
+    return;
+  }
+  T* s_out = reinterpret_cast<T*>(smem_raw);   // [x-sourced scales][out_cap]
+  const int tid = threadIdx.x, p = a.p, w = a.w;
+  const int64_t item = blockIdx.x - a.down_blocks;
+  const int64_t plane = item / a.bands;
+  const int c = (int)(plane % p), b = (int)(plane / p);
+  const int y0 = (int)(item - plane * a.bands) * a.rb;
+  const int nrows = min(a.rb, a.h - y0);
+  const int64_t hw = (int64_t)a.h * w;
+  // the rows of x that the bands of this band read, and how many scales
+  int r0 = a.h, r1 = 0, n_x = 0;
+  for (int si = 0; si < a.s_n; ++si) {
+    const BranchScale& s = a.sc[si];
+    if (s.down) continue;
+    r0 = min(r0, s.rs[y0]);
+    r1 = max(r1, s.rs[y0 + nrows - 1] + s.k);
+    ++n_x;
+  }
+  float* s_x = reinterpret_cast<float*>(s_out + n_x * a.out_cap);
+  if (r1 > r0)  // and the pad after them: the bands' overhang, weight 0
+    stage_run<T>(reinterpret_cast<const T*>(a.x) + plane * hw, hw,
+                 (int64_t)r0 * w, (r1 - r0) * w + KMAX, s_x, tid);
+  __syncthreads();
+  for (int si = 0, j = 0; si < a.s_n; ++si) {
+    const BranchScale& s = a.sc[si];
+    if (s.down) continue;
+    const float* tk = a.taps + si * 9 * p + c;
+    T* so = s_out + j++ * a.out_cap;
+    for (int it = tid; it < w * a.nsub; it += BR_NT) {
+      const int sub = it / w, x = it - sub * w;
+      const int ya = sub * a.rsub, yb = min(ya + a.rsub, nrows);
+      if (ya >= yb) continue;
+      switch (s.k) {
+        case 3: branch_x<3, T>(s, tk, p, s_x, r0, x, y0, ya, yb, so + x, w);
+                break;
+        case 4: branch_x<4, T>(s, tk, p, s_x, r0, x, y0, ya, yb, so + x, w);
+                break;
+        default:
+          if constexpr (KMAX > 4)
+            branch_x<KMAX, T>(s, tk, p, s_x, r0, x, y0, ya, yb, so + x, w);
+          break;
+      }
+    }
+  }
+  __syncthreads();
+  // each scale's span of nrows x W contiguous outputs
+  const int n = nrows * w;
+  const bool whole = (n * sizeof(T)) % 16 == 0;
+  for (int si = 0, j = 0; si < a.s_n; ++si) {
+    if (a.sc[si].down) continue;
+    T* dst = reinterpret_cast<T*>(a.out) +
+             (((int64_t)b * a.s_n + si) * p + c) * hw + (int64_t)y0 * w;
+    const T* sv = s_out + j++ * a.out_cap;
+    if (whole && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+      const int n16 = n * (int)sizeof(T) / 16;
+      for (int i = tid; i < n16; i += BR_NT)
+        reinterpret_cast<uint4*>(dst)[i] =
+            reinterpret_cast<const uint4*>(sv)[i];
+    } else {
+      for (int i = tid; i < n; i += BR_NT) dst[i] = sv[i];
+    }
+  }
+}
+
+template <typename T, int KMAX>
+static int branches_typed(const BranchArgs& a, int64_t blocks, size_t smem,
+                          cudaStream_t st) {
+  const cudaError_t e = launch_smem(pyr_branches_kernel<T, KMAX>, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, dim3(TW, TH), smem, st>>>(a);
+  pyr_branches_kernel<T, KMAX><<<(unsigned)blocks, BR_NT, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-// x [B, P, H, W] (dtype), taps [S, 3, 3, P] f32 -> out [B, S*P, H, W]
-// (dtype).  kinds/hs/ws/scratch are host arrays of length S (scratch holds
-// a [B*P, hs, ws] f32 buffer for each down scale); r_cap/d_cap bound the
-// shared-memory R and D regions of one channel in any tile, and g channels
-// are staged together (both computed by the wrapper).
-extern "C" int pyr_branches_launch(const void* x, int dtype, int b, int p,
-                                   int h, int w, int s_n, const int* kinds,
-                                   const int* hs, const int* ws,
-                                   const int* itab, const float* ftab,
-                                   const float* taps, int g,
-                                   void* const* scratch, int r_cap, int d_cap,
+// The launch record `cfg` (ints, ops/pyrpool.py _branch_record): dtype, B,
+// P, H, W, S, rb, nsub, rsub, the staged x floats (rows and pad), then per
+// scale its kind, branch size (hs, ws), band width K, and the offsets of
+// its row starts and column starts in the int tables and of its row and
+// column weights in the float tables.  tabs: the down scales'
+// adaptive-average bins (ints, floats; down_args) and the band tables
+// (ints, floats).  x [B, P, H, W] (dtype), taps [S, 3, 3, P] f32 ->
+// out [B, S*P, H, W] (dtype).
+#define BR_HEAD 10
+#define BR_SCALE 8
+extern "C" int pyr_branches_launch(const int* cfg, void* const* tabs,
+                                   const void* x, const float* taps,
                                    void* out, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int dtype = cfg[0], b = cfg[1], p = cfg[2], h = cfg[3], w = cfg[4];
+  const int s_n = cfg[5];
   if ((int64_t)b * p * h * w == 0) return (int)cudaGetLastError();
-  if (s_n > MAX_S || g < 1) return (int)cudaErrorInvalidValue;
-  PyrArgs a = {};
+  if (s_n > MAX_S || cfg[6] < 1 || cfg[7] < 1 || cfg[8] * cfg[7] < cfg[6])
+    return (int)cudaErrorInvalidValue;
+  const int* bt_i = static_cast<const int*>(tabs[2]);
+  const float* bt_f = static_cast<const float*>(tabs[3]);
+  BranchArgs a = {};
   a.x = x; a.out = out; a.taps = taps;
-  a.b = b; a.p = p; a.h = h; a.w = w; a.s_n = s_n;
-  a.tiles_x = (w + TW - 1) / TW;
-  a.r_cap = r_cap; a.d_cap = d_cap; a.g = g;
-  float* const* scr = reinterpret_cast<float* const*>(scratch);
-  const dim3 grid(a.tiles_x * ((h + TH - 1) / TH), b);
-  const size_t smem = sizeof(float) * (size_t)g * (9 + NT + r_cap + d_cap);
-  int e;
-  if (dtype == MSPL_BF16) {
-    if ((e = prepare<__nv_bfloat16>(a, kinds, hs, ws, itab, ftab, scr, st))) return e;
-    return launch(pyr_branches_kernel<__nv_bfloat16>, grid, smem, st, a);
+  a.p = p; a.h = h; a.w = w; a.s_n = s_n;
+  a.rb = cfg[6]; a.nsub = cfg[7]; a.rsub = cfg[8];
+  const int esize = dtype == MSPL_BF16 ? 2 : 4;
+  a.out_cap = (a.rb * w * esize + 15) / 16 * 16 / esize;
+  int kinds[MAX_S], hs[MAX_S], ws[MAX_S], kmax = 0, n_x = 0;
+  for (int si = 0; si < s_n; ++si) {
+    const int* l = cfg + BR_HEAD + BR_SCALE * si;
+    BranchScale& s = a.sc[si];
+    kinds[si] = l[0]; hs[si] = l[1]; ws[si] = l[2];
+    s.k = l[3];
+    s.rs = bt_i + l[4]; s.cs = bt_i + l[5];
+    s.rw = bt_f + l[6]; s.cw = bt_f + l[7];
+    s.down = kinds[si] == KIND_DOWN;
+    if (s.down ? s.k != 2 : s.k != 3 && s.k != 4 && s.k != 6)
+      return (int)cudaErrorInvalidValue;
+    if (!s.down) {
+      if (s.k > kmax) kmax = s.k;
+      ++n_x;
+    }
   }
-  if ((e = prepare<float>(a, kinds, hs, ws, itab, ftab, scr, st))) return e;
-  return launch(pyr_branches_kernel<float>, grid, smem, st, a);
+  DownArgs& d = a.down;
+  d = down_args(x, taps, p, h, w, s_n, kinds, hs, ws,
+                static_cast<const int*>(tabs[0]),
+                static_cast<const float*>(tabs[1]), nullptr);
+  d.out = out;
+  for (int i = 0; i < d.n; ++i) {
+    const BranchScale& s = a.sc[d.sc[i].si];
+    d.sc[i].rs = s.rs; d.sc[i].rw = s.rw;
+    d.sc[i].cs = s.cs; d.sc[i].cw = s.cw;
+  }
+  const int64_t planes = (int64_t)b * p;
+  a.down_blocks = d.n ? (int)planes : 0;
+  a.bands = (h + a.rb - 1) / a.rb;
+  const int64_t blocks = a.down_blocks + (n_x ? planes * a.bands : 0);
+  if (!blocks) return (int)cudaGetLastError();
+  if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  size_t smem = (size_t)n_x * a.out_cap * esize +
+                sizeof(float) * (size_t)cfg[9];
+  const size_t down_smem =
+      sizeof(float) * (2 * (size_t)d.pool + (BR_NT / 32) * (size_t)w);
+  if (d.n && down_smem > smem) smem = down_smem;
+  if (dtype == MSPL_BF16)
+    return kmax > 4 ? branches_typed<__nv_bfloat16, 6>(a, blocks, smem, st)
+                    : branches_typed<__nv_bfloat16, 4>(a, blocks, smem, st);
+  return kmax > 4 ? branches_typed<float, 6>(a, blocks, smem, st)
+                  : branches_typed<float, 4>(a, blocks, smem, st);
 }
 
 // ---------------------------------------------------------------------------
 // Fused tail: every branch as composed banded operators at source resolution
 // ---------------------------------------------------------------------------
 //
-// A branch is resample -> depthwise 3x3 (zero 'same' padding) -> resample
-// back.  For the identity and up scales it is exactly
-//     branch = sum_{ey,ex} tap[ey,ex] * M_h[ey] @ x @ M_w[ex]^T
-// with M[e] = back @ S_e @ to (S_e for the identity scale), S_e the shift
-// by the tap offset e = -1, 0, 1 at branch resolution.  Each row of M[e] is
-// non-zero on a short band at every offset together (3 or 4 at the main
-// path's scales), so the branch value at (y, x) is a position-dependent
-// K x K stencil on x:
-//     v = sum_k sum_ey rw[y][ey][k] * sum_l B[ey][l] * x[rs[y]+k][cs[x]+l],
-//     B[ey][l] = sum_ex tap[ey,ex] * cw[x][ex][l],
-// with (rs, rw) and (cs, cw) the band tables (ops/pyrpool.py scale_bands,
-// f64 products rounded once to f32).  Nothing at branch resolution is
-// staged.  A down scale's plane is small (64x120 and 13x24 at the main
-// path), so two pre-passes compute its adaptive average and the depthwise
-// 3x3 of that at branch resolution, and the tail applies the bilinear
-// resample back alone, a 2 x 2 stencil.
+// Each branch as the composed banded stencils of the file's head note, the
+// down scales through the shared pre-pass and a 2 x 2 resample back.
 //
 // Bound: operations (f32); on this card first the instructions of the
 // stencils, the merge and the classifier, and the latency of staging.  A
@@ -425,10 +608,6 @@ struct BandScale {
   int src_h, src_w;         // the plane the bands index
   const float* rg;          // down scales: the depthwise planes [B*P,
                             // src_h, src_w] the pre-pass fills; else null
-  const int* hb;            // down scales: adaptive-average bins [hs, 2]
-  const float* hbw;         // ([lo, hi) and weight) of the rows
-  const int* wb;            // and [ws, 2] of the columns
-  const float* wbw;
 };
 
 struct TailArgs {
@@ -751,92 +930,11 @@ pyr_tail_kernel(const __grid_constant__ TailArgs a) {
   }
 }
 
-// The tail's pre-pass: for every down scale, the adaptive average of each
-// [H, W] plane to [hs, ws] (H bins first, then W, as the plain version
-// multiplies) and the depthwise 3x3 of that (zero 'same' padding, channel
-// c's taps), into the scale's D planes [B*P, hs, ws] (f32).  A block takes
-// one plane and every down scale in turn: each warp pools whole rows (the
-// lanes read x's rows coalesced, the H bin's sum kept in a per-warp row,
-// then the row's W bins), the block holds the pooled plane in shared
-// memory, then writes its depthwise 3x3.  `pool` (floats) holds the
-// largest pooled plane.
-#define PP_WARPS 8
-template <typename T>
-__global__ void __launch_bounds__(PP_WARPS * 32)
-down_prepass_kernel(const __grid_constant__ TailArgs a, int pool) {
-  extern __shared__ float sm[];
-  float* pooled = sm;                            // [hs][ws]
-  float* row = sm + pool + (threadIdx.x / 32) * a.w;  // this warp's H sums
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int64_t plane = blockIdx.x;
-  const int c = (int)(plane % a.p);
-  const T* src = reinterpret_cast<const T*>(a.x) + plane * a.h * a.w;
-  for (int si = 0; si < a.s_n; ++si) {
-    const BandScale& s = a.sc[si];
-    if (!s.rg) continue;
-    const int hs = s.src_h, ws = s.src_w;
-    for (int r = warp; r < hs; r += PP_WARPS) {
-      const int y0 = s.hb[2 * r], y1 = s.hb[2 * r + 1];
-      const float wy = s.hbw[2 * r];
-      // eight columns a lane at a time, their loads in flight together
-      for (int x0 = lane; x0 < a.w; x0 += 8 * 32) {
-        float acc[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-        for (int y = y0; y < y1; ++y) {
-          const T* in = src + y * a.w;
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            if (x0 + 32 * j < a.w) acc[j] += wy * to_f32(in[x0 + 32 * j]);
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          if (x0 + 32 * j < a.w) row[x0 + 32 * j] = acc[j];
-      }
-      __syncwarp();
-      for (int q = lane; q < ws; q += 32) {
-        const int x0 = s.wb[2 * q], x1 = s.wb[2 * q + 1];
-        const float wx = s.wbw[2 * q];
-        float v = 0.f;
-        for (int x = x0; x < x1; ++x) v += wx * row[x];
-        pooled[r * ws + q] = v;
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-    const float* tk = a.taps + si * 9 * a.p + c;
-    float* d = const_cast<float*>(s.rg) + plane * hs * ws;
-    for (int r = warp; r < hs; r += PP_WARPS)
-      for (int q = lane; q < ws; q += 32) {
-        float acc = 0.f;
-#pragma unroll
-        for (int ky = 0; ky < 3; ++ky) {
-          const int yy = r + ky - 1;
-          if (yy < 0 || yy >= hs) continue;
-#pragma unroll
-          for (int kx = 0; kx < 3; ++kx) {
-            const int xx = q + kx - 1;
-            if (xx < 0 || xx >= ws) continue;
-            acc += tk[(ky * 3 + kx) * a.p] * pooled[yy * ws + xx];
-          }
-        }
-        d[r * ws + q] = acc;
-      }
-    __syncthreads();  // before the next scale overwrites the pooled plane
-  }
-}
-
 template <typename T, int KMAX>
-static int tail_typed(const TailArgs& t, int n_down, int pool, size_t smem,
+static int tail_typed(const TailArgs& t, const DownArgs& d, size_t smem,
                       cudaStream_t st) {
-  cudaError_t e;
-  if (n_down) {
-    const size_t pre = sizeof(float) * ((size_t)pool + PP_WARPS * t.w);
-    if ((e = launch_smem(down_prepass_kernel<T>, pre)) != cudaSuccess)
-      return (int)e;
-    down_prepass_kernel<T><<<t.b * t.p, PP_WARPS * 32, pre, st>>>(t, pool);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  }
+  cudaError_t e = launch_prepass<T>(d, (int64_t)t.b * t.p, st);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid(t.tiles_x * ((t.h + BTH - 1) / BTH), t.b);
   if ((e = launch_smem(pyr_tail_kernel<T, KMAX>, smem)) != cudaSuccess)
     return (int)e;
@@ -846,10 +944,11 @@ static int tail_typed(const TailArgs& t, int n_down, int pool, size_t smem,
 
 // x [B, P, H, W] (dtype), taps [S, 3, 3, P] f32, params f32 packed as
 // [aff1 (3,S*P) | merge (3,3,S,P) | aff2 (3,P) | cls_w (P,O) | cls_b (O) |
-//  aff3 (3,O)] -> out [B, O, H, W] (dtype); P <= 16.  kinds/hs/ws/itab/
-// ftab as for pyr_branches_launch (the down scales' adaptive-average bins
-// are read from them); scratch holds a [B*P, hs, ws] f32 buffer for each
-// down scale, which the pre-pass fills with its depthwise planes; band_k
+//  aff3 (3,O)] -> out [B, O, H, W] (dtype); P <= 16.  kinds/hs/ws: each
+// scale's kind and branch size (host arrays of S); itab/ftab: the down
+// scales' adaptive-average bins (down_args); scratch holds a [B*P, hs, ws]
+// f32 buffer for each down scale, which the pre-pass fills with its
+// depthwise planes; band_k
 // [S] the band width of each scale (3, 4 or 6; 2 for a down scale);
 // tab_f/tab_i the tiles' tables (tile_f floats and tile_i ints a tile,
 // laid out as TailArgs says); g channels are staged together, each in x_cap
@@ -873,8 +972,7 @@ extern "C" int pyr_tail_launch(const void* x, int dtype, int b, int p, int h,
   t.b = b; t.p = p; t.h = h; t.w = w; t.s_n = s_n; t.o_n = o_n;
   t.tiles_x = (w + BTW - 1) / BTW;
   t.g = g; t.x_cap = x_cap; t.d_cap = d_cap;
-  int n_down = 0, kmax = 0, pool = 0;
-  int64_t off = 0;  // a non-identity scale's tables in itab/ftab (prepare)
+  int n_down = 0, kmax = 0;
   for (int si = 0; si < s_n; ++si) {
     BandScale& s = t.sc[si];
     s.k = band_k[si];
@@ -884,16 +982,14 @@ extern "C" int pyr_tail_launch(const void* x, int dtype, int b, int p, int h,
     s.src_h = down ? hs[si] : h;
     s.src_w = down ? ws[si] : w;
     if (down) {
-      s.hb = itab + off;            s.hbw = ftab + off;
-      s.wb = s.hb + 2 * hs[si];     s.wbw = s.hbw + 2 * hs[si];
       s.rg = reinterpret_cast<float*>(scratch[si]);
       ++n_down;
-      if (hs[si] * ws[si] > pool) pool = hs[si] * ws[si];
     } else if (s.k > kmax) {
       kmax = s.k;
     }
-    if (kinds[si] != KIND_ID) off += 2 * ((int64_t)hs[si] + ws[si] + h + w);
   }
+  const DownArgs d = down_args(x, taps, p, h, w, s_n, kinds, hs, ws, itab,
+                               ftab, scratch);
   const size_t smem = sizeof(float) *
       ((size_t)((3 * s_n * p + 3 * p + 3) & ~3) +
        ((9 * s_n * p + 3) & ~3) + 12 * s_n * p +
@@ -901,10 +997,10 @@ extern "C" int pyr_tail_launch(const void* x, int dtype, int b, int p, int h,
        tile_i +
        (size_t)g * (x_cap + (size_t)n_down * d_cap + 2 * BBH * BBW));
   if (dtype == MSPL_BF16)
-    return kmax > 4 ? tail_typed<__nv_bfloat16, 6>(t, n_down, pool, smem, st)
-                    : tail_typed<__nv_bfloat16, 4>(t, n_down, pool, smem, st);
-  return kmax > 4 ? tail_typed<float, 6>(t, n_down, pool, smem, st)
-                  : tail_typed<float, 4>(t, n_down, pool, smem, st);
+    return kmax > 4 ? tail_typed<__nv_bfloat16, 6>(t, d, smem, st)
+                    : tail_typed<__nv_bfloat16, 4>(t, d, smem, st);
+  return kmax > 4 ? tail_typed<float, 6>(t, d, smem, st)
+                  : tail_typed<float, 4>(t, d, smem, st);
 }
 
 // Blocks of the tail kernel's instance for bands up to kmax (4 or 6) one SM

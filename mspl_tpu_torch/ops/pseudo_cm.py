@@ -9,7 +9,8 @@ argmax and confidence, then `conf >= kc[label]` else ignore.  With
 (an entropy confidence that rounds below 0 is set to ignore).
 
 Bound on the card: bytes (every logit read once, 8 bytes written per
-pixel); see the source note in csrc/pseudo_cm.cu for the design.
+pixel); see the source note in csrc/pseudo_cm.cu for the design and
+`launch_plan` for what the wrapper decides per call.
 """
 
 from __future__ import annotations
@@ -25,7 +26,21 @@ from mspl_tpu_torch.ops import _cuda
 from mspl_tpu_torch.utils.registry import IGNORE_LABEL
 
 MAX_MODELS, MAX_C, MAX_T1 = 4, 32, 8
+PIXELS_PER_THREAD = 4  # csrc/pseudo_cm.cu VP: one 8- or 16-byte load
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def launch_plan(channels: Sequence[int], n_t: int, hw: int,
+                aligned: bool) -> Tuple[Tuple[int, ...], int, bool]:
+    """What the kernel is launched with: each model's register width (its
+    channel count rounded up to a multiple of 4), the tables' padded width
+    (4 or 8 columns, the template instance that holds T+1), and whether a
+    thread reads its 4 pixels with one vector load a channel (the plane's
+    pixel count a multiple of 4 and every tensor on a 16-byte word; else
+    element by element)."""
+    widths = tuple(-(-c // 4) * 4 for c in channels)
+    t1 = 4 if n_t + 1 <= 4 else MAX_T1
+    return widths, t1, aligned and hw % PIXELS_PER_THREAD == 0
 
 
 def _check_args(logits_cm, conversions, mode, conf_mode):
@@ -169,14 +184,21 @@ def fused_pseudo_cm(
     tables = _tables(convs, dev)
     kc_t = _kc_vector(kc, n_t, dev)
     need = min_agree if min_agree is not None else (n // 2 + 1)
-    ptrs = [_cuda.ptr(x) for x in logits_cm] + [None] * (MAX_MODELS - n)
-    cs = [int(c.shape[0]) for c in convs] + [0] * (MAX_MODELS - n)
+    if b > 65535:
+        raise ValueError("kernel limit: batch <= 65535")
+    cs = [int(c.shape[0]) for c in convs]
+    aligned = all(t.data_ptr() % 16 == 0
+                  for t in (*logits_cm, label, conf))
+    widths, t1, vec = launch_plan(cs, n_t, h * w, aligned)
+    pad = [0] * (MAX_MODELS - n)
+    ptrs = [_cuda.ptr(x) for x in logits_cm] + [None] * len(pad)
     lib = _lib()
     err = lib.pseudo_cm_launch(
-        *ptrs, *cs, n, _cuda.ptr(tables), _cuda.ptr(kc_t), n_t, h * w,
-        b * h * w, 1 if x0.dtype == torch.bfloat16 else 0,
-        int(mode == "hard"), int(conf_mode == "entropy"), float(need),
-        ignore_label, 1.0 / math.log(n_t + 1), _cuda.ptr(label),
+        *ptrs, *(cs + pad), *(list(widths) + pad), n, _cuda.ptr(tables),
+        _cuda.ptr(kc_t), n_t, h * w, b,
+        1 if x0.dtype == torch.bfloat16 else 0, int(mode == "hard"),
+        int(conf_mode == "entropy"), float(need), ignore_label,
+        1.0 / math.log(n_t + 1), t1, int(vec), _cuda.ptr(label),
         _cuda.ptr(conf), _cuda.stream(x0))
     _cuda.check(lib, err, "pseudo_cm_launch")
     fused_pseudo_cm.launches += 1
@@ -191,9 +213,13 @@ def _lib():
     fn = lib.pseudo_cm_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * 4 + [ci] * 5 + [vp, vp, ci, ctypes.c_longlong,
-                                               ctypes.c_longlong, ci, ci, ci,
+        # logits, channels, widths, N, tables, kc, T, H*W, B, dtype, hard,
+        # entropy, min_agree, ignore, 1/ln(T+1), T1 instance, vec, label,
+        # conf, stream
+        fn.argtypes = ([vp] * 4 + [ci] * 9 + [vp, vp, ci, ctypes.c_longlong,
+                                               ci, ci, ci, ci,
                                                ctypes.c_float, ci,
-                                               ctypes.c_float, vp, vp, vp])
+                                               ctypes.c_float, ci, ci, vp,
+                                               vp, vp])
         fn.restype = ci
     return lib

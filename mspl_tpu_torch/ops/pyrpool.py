@@ -6,10 +6,16 @@ their plain PyTorch versions.
   comes with the training slice of the port).
 * `pyr_pool_fused_eval` replaces pyr_pool_fused_eval_v3 and its v2/v1
   fallbacks (one contract): the whole eval EfficientPyrPool after the proj
-  conv, for the classifier stage bu_dec_l4.  Its kernel applies each
-  branch as banded operators at source resolution: the host builds the
-  band tables (`scale_bands`) and lays them out per output tile
-  (`_tail_plan`); `pyr_branches_band` is the same algebra in plain PyTorch.
+  conv, for the classifier stage bu_dec_l4.
+
+Both kernels apply each branch as banded operators at source resolution:
+the host builds the band tables (`scale_bands`), lays them out per scale
+for the branch stack's full-width row bands (`_branch_plan`) and per
+output tile for the tail (`_tail_plan`); `pyr_branches_band` is the same
+algebra in plain PyTorch.  Both pool the down scales and take their
+depthwise in one pre-pass (`csrc/pyrpool.cu` down_plane), from the bins of
+`_down_plan`: the tail's in a launch of its own, the branch stack's as the
+first blocks of its one launch, which also write those branches.
 
 Both take channel-major [B, P, H, W] input, the layout the TPU kernels work
 in after their entry transpose, and return [B, S*P, H, W] and [B, O, H, W].
@@ -30,12 +36,13 @@ import torch.nn.functional as F
 
 from mspl_tpu_torch.ops import _cuda
 from mspl_tpu_torch.ops.resize import (_interp_matrix, adaptive_avg_pool,
-                                       adaptive_bins, interp_taps,
-                                       resize_bilinear)
+                                       adaptive_bins, resize_bilinear)
 
 MAX_P, MAX_S = 16, 8
-SMEM_FLOATS = (227 * 1024 - 2048) // 4
-TILE = (16, 32)  # the branch kernel's output tile (csrc/pyrpool.cu TH, TW)
+BRANCH_ROWS = 16  # output rows of a branch-stack block (a full-width band)
+BRANCH_THREADS = 128  # its threads (csrc/pyrpool.cu BR_NT)
+BRANCH_SMEM = 227 * 1024  # a block's shared memory at most (bytes)
+X_PAD = 6  # staged zeros after the x rows: the widest band's overhang
 TAIL_TILE = (16, 30)  # the tail kernel's output tile (BTH, BTW)
 TAIL_THREADS = 32 * 16  # its block, one thread per branch column and row
 BAND_KS = (3, 4, 6)  # the tail kernel's band widths (template K)
@@ -121,50 +128,27 @@ def pyr_pool_fused_eval_plain(x, dw_weights, aff1, merge_weights, aff2,
     return y.to(x.dtype)
 
 
-def _extent(back: np.ndarray, n: int, n_s: int, tile: int):
-    """Largest (R, D) extents along one axis over the branch kernel's
-    tiles: the branch-resolution rows D that the back taps of a tile read,
-    and those plus the depthwise halo, R (see csrc/pyrpool.cu)."""
-    lo, hi = back[:, 0], back[:, 1]
-    if not (np.all(np.diff(lo) >= 0) and np.all(np.diff(hi) >= 0)
-            and np.all(lo <= hi)):
-        raise ValueError("resample taps are not monotone")
-    r_max = d_max = 0
-    for t0 in range(0, n, tile):
-        o0, o1 = t0, min(t0 + tile - 1, n - 1)
-        d0, d1 = int(lo[o0]), int(hi[o1])
-        r0, r1 = max(d0 - 1, 0), min(d1 + 1, n_s - 1)
-        r_max, d_max = max(r_max, r1 - r0 + 1), max(d_max, d1 - d0 + 1)
-    return r_max, d_max
-
-
-def _plan(h: int, w: int, scales: Tuple[float, ...], device):
-    """Per-scale kinds and sizes, the packed (index, weight) resample tables
-    on the device, and the shared-memory capacities (floats) of the branch
-    kernel's R and D regions; cached per shape."""
+def _down_plan(h: int, w: int, scales: Tuple[float, ...], device):
+    """Per-scale kinds and branch sizes, and the down scales'
+    adaptive-average bins packed for the pre-pass (per down scale its row
+    bins then its column bins, (index, weight) pairs) on the device; cached
+    per shape."""
     key = (h, w, scales, str(device))
     hit = _plan_cache.get(key)
     if hit is not None:
         return hit
     kinds, idx, wgt = [], [], []
-    r_cap = d_cap = 1
     sizes = branch_sizes(h, w, scales)
     for s, (hs, ws) in zip(scales, sizes):
-        if s == 1.0:
-            kinds.append(_KIND_ID)
-            continue
-        kinds.append(_KIND_UP if s > 1.0 else _KIND_DOWN)
-        to = interp_taps if s > 1.0 else adaptive_bins
-        back_h, back_w = interp_taps(hs, h), interp_taps(ws, w)
-        for tab in (to(h, hs), to(w, ws), back_h, back_w):
-            idx.append(tab[0].reshape(-1))
-            wgt.append(tab[1].reshape(-1))
-        rh, dh = _extent(back_h[0], h, hs, TILE[0])
-        rw, dw = _extent(back_w[0], w, ws, TILE[1])
-        r_cap, d_cap = max(r_cap, rh * rw), max(d_cap, dh * dw)
+        kinds.append(_KIND_ID if s == 1.0 else
+                     _KIND_UP if s > 1.0 else _KIND_DOWN)
+        if s < 1.0:
+            for tab in (adaptive_bins(h, hs), adaptive_bins(w, ws)):
+                idx.append(tab[0].reshape(-1))
+                wgt.append(tab[1].reshape(-1))
     itab = torch.from_numpy(np.concatenate(idx or [np.zeros(1, np.int32)]))
     ftab = torch.from_numpy(np.concatenate(wgt or [np.zeros(1, np.float32)]))
-    hit = (kinds, sizes, itab.to(device), ftab.to(device), r_cap, d_cap)
+    hit = (kinds, sizes, itab.to(device), ftab.to(device))
     _plan_cache[key] = hit
     return hit
 
@@ -279,6 +263,106 @@ def pyr_branches_band(x: torch.Tensor, weights: torch.Tensor,
     return torch.cat(branches, dim=1).to(x.dtype)
 
 
+def _up4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _branch_plan(h: int, w: int, scales: Tuple[float, ...], device):
+    """The branch-stack kernel's tables and launch shape; cached per shape.
+
+    Per scale, its band tables of `scale_bands` as the kernel reads them:
+    row starts [H] and column starts [W] (ints), row weights [H][rwp] and
+    column weights [W][E*K] (floats; rwp = E*K, padded to a multiple of 4
+    for an identity or up scale, whose rows are read as 16-byte words; each
+    table starts on a 16-byte word).  `lay` [S * 6] holds each scale's K,
+    rwp and the offsets of its row starts, column starts, row weights and
+    column weights.  The pre-pass writes the down scales' branches through
+    their tables; the band kernel takes the identity and up scales'.  A
+    block takes `rb` full-width output rows, as many as 16 whose staging
+    fits its shared memory; a thread a column and a run of `rsub` of them
+    (`nsub` runs a band, so that a block has work for its threads at
+    narrow planes).  It stages, flat, the x rows that the bands of its band
+    read (at most `x_rows`, then a pad of X_PAD zeros for the bands'
+    overhang past the last column).  Returns (lay, ints, floats, rb, nsub,
+    rsub, x_rows)."""
+    key = ("branch", h, w, scales, str(device))
+    hit = _plan_cache.get(key)
+    if hit is not None:
+        return hit
+    lay, ints, floats, bands = [], [], [], []
+    n_i = n_f = 0
+    for s, ((hs, ws), (rs, rw), (cs, cw)) in zip(scales,
+                                                 scale_bands(h, w, scales)):
+        k = rw.shape[2]
+        rw = rw.reshape(h, -1)
+        rwp = rw.shape[1] if s < 1.0 else _up4(rw.shape[1])
+        rw = np.pad(rw, ((0, 0), (0, rwp - rw.shape[1]))).reshape(-1)
+        cw = cw.reshape(-1)
+        f_rw = n_f
+        f_cw = f_rw + _up4(rw.size)
+        lay += [k, rwp, n_i, n_i + h, f_rw, f_cw]
+        ints += [rs, cs]
+        floats += [rw, np.zeros(f_cw - f_rw - rw.size, np.float32), cw,
+                   np.zeros(_up4(cw.size) - cw.size, np.float32)]
+        n_i += h + w
+        n_f = f_cw + _up4(cw.size)
+        bands.append((s, hs, ws, rs, k))
+
+    def x_rows_of(rb):
+        """The most x rows that a band of rb rows stages."""
+        x_rows = 1
+        for y0 in range(0, h, rb):
+            y1 = min(y0 + rb, h) - 1
+            xs = [(int(rs[y0]), int(rs[y1]) + k)
+                  for s, _, _, rs, k in bands if s >= 1.0]
+            if xs:
+                x_rows = max(x_rows, max(hi for _, hi in xs)
+                             - min(lo for lo, _ in xs))
+        return x_rows
+
+    for rb in range(min(BRANCH_ROWS, h), 0, -1):
+        x_rows = x_rows_of(rb)
+        if 4 * (len(scales) * _up4(rb * w) + x_rows * w
+                + X_PAD) <= BRANCH_SMEM:
+            break
+    else:
+        raise ValueError(f"kernel limit: a row of {w} does not fit")
+    nsub = max(1, min(rb, BRANCH_THREADS // w))
+    rsub = -(-rb // nsub)
+    hit = (lay, torch.from_numpy(np.concatenate(ints).astype(np.int32)).to(
+        device), torch.from_numpy(np.concatenate(floats).astype(
+            np.float32)).to(device), rb, nsub, rsub, x_rows)
+    _plan_cache[key] = hit
+    return hit
+
+
+def _branch_record(b: int, p: int, h: int, w: int,
+                   scales: Tuple[float, ...], dtype, device):
+    """One launch of the branch stack's kernels packed for a short ctypes
+    call, cached per call shape: the int record that csrc/pyrpool.cu
+    pyr_branches_launch reads and the table pointers.  Returns (record
+    address, tables address, the ctypes arrays that own both)."""
+    key = ("record", b, p, h, w, scales, dtype, str(device))
+    hit = _plan_cache.get(key)
+    if hit is not None:
+        return hit
+    kinds, sizes, itab, ftab = _down_plan(h, w, scales, device)
+    lay, bt_i, bt_f, rb, nsub, rsub, x_rows = _branch_plan(h, w, scales,
+                                                           device)
+    per_scale = []
+    for si, (kind, (hs, ws)) in enumerate(zip(kinds, sizes)):
+        k, _, o_rs, o_cs, o_rw, o_cw = lay[6 * si:6 * si + 6]
+        per_scale += [kind, hs, ws, k, o_rs, o_cs, o_rw, o_cw]
+    cfg = [1 if dtype == torch.bfloat16 else 0, b, p, h, w, len(scales), rb,
+           nsub, rsub, x_rows * w + X_PAD] + per_scale
+    cfg = (ctypes.c_int * len(cfg))(*cfg)
+    tabs = (ctypes.c_void_p * 4)(*[t.data_ptr() for t in (itab, ftab, bt_i,
+                                                           bt_f)])
+    hit = (ctypes.addressof(cfg), ctypes.addressof(tabs), (cfg, tabs))
+    _plan_cache[key] = hit
+    return hit
+
+
 def _tail_plan(h: int, w: int, scales: Tuple[float, ...], device):
     """The tail kernel's per-tile tables on the device and their sizes;
     cached per shape.  For each 16 x 30 output tile and each scale: the
@@ -350,52 +434,28 @@ def _group(p: int, per_ch: int, budget: int) -> int:
     return max(1, min(p, budget // per_ch))
 
 
-def _launch(fn, x, weights, scales, out, extra, post):
-    """Shared argument checks and launch of the two pyramid kernels; `extra`
-    goes between the taps and the scratch (the branch stack's channel group
-    size; the tail's params, O, group size and band tables), `post` between
-    the scratch and the output (the shared-memory capacities)."""
-    _cuda.require(x, "x", _DTYPES)
-    b, p, h, w = x.shape
-    s_n = len(scales)
-    if s_n > MAX_S:
-        raise ValueError(f"kernel limit: S <= {MAX_S}")
-    weights = weights.to(device=x.device, dtype=torch.float32).contiguous()
-    _cuda.require(weights, "weights", (torch.float32,), (s_n, 3, 3, p))
-    kinds, sizes, itab, ftab, _, _ = _plan(h, w, scales, x.device)
-    # the down scales' resampled planes (f32), filled by a pre-pass
-    scratch = [torch.empty((b * p, hs, ws), dtype=torch.float32,
-                           device=x.device) if k == _KIND_DOWN else None
-               for k, (hs, ws) in zip(kinds, sizes)]
-    ci = ctypes.c_int * s_n
-    lib = _lib()
-    err = getattr(lib, fn)(
-        _cuda.ptr(x), 1 if x.dtype == torch.bfloat16 else 0, b, p, h, w, s_n,
-        ci(*kinds), ci(*[hs for hs, _ in sizes]), ci(*[ws for _, ws in sizes]),
-        _cuda.ptr(itab), _cuda.ptr(ftab), _cuda.ptr(weights), *extra,
-        (ctypes.c_void_p * s_n)(*[None if t is None else t.data_ptr()
-                                  for t in scratch]),
-        *post, _cuda.ptr(out), _cuda.stream(x))
-    _cuda.check(lib, err, fn)
-    return out
-
-
 def pyr_branches(x: torch.Tensor, weights: torch.Tensor,
                  scales: Sequence[float]) -> torch.Tensor:
     """Five-scale branch stack: x [B, P, H, W], weights [S, 3, 3, P] ->
     [B, S*P, H, W] (channel si*P + c) in x.dtype.  CPU tensors take the
-    plain version; CUDA tensors launch the kernels."""
+    plain version; CUDA tensors launch the kernel (one launch: pre-pass
+    blocks write the down scales' branches, band blocks the others)."""
     if not x.is_cuda:
         return pyr_branches_plain(x, weights, scales)
+    _cuda.require(x, "x", _DTYPES)
     b, p, h, w = x.shape
+    scales = tuple(scales)
+    if len(scales) > MAX_S:
+        raise ValueError(f"kernel limit: S <= {MAX_S}")
+    weights = weights.to(device=x.device, dtype=torch.float32).contiguous()
+    _cuda.require(weights, "weights", (torch.float32,), (len(scales), 3, 3, p))
+    cfg, tabs, _ = _branch_record(b, p, h, w, scales, x.dtype, x.device)
     out = torch.empty((b, len(scales) * p, h, w), dtype=x.dtype,
                       device=x.device)
-    _, _, _, _, r_cap, d_cap = _plan(h, w, tuple(scales), x.device)
-    # half a block's shared memory: the kernel's registers let two blocks
-    # share an SM, which beats staging more channels at once
-    g = _group(p, 9 + TILE[0] * TILE[1] + r_cap + d_cap, SMEM_FLOATS // 2)
-    _launch("pyr_branches_launch", x, weights, tuple(scales), out, (g,),
-            (r_cap, d_cap))
+    lib = _lib()
+    _cuda.check(lib, lib.pyr_branches_launch(
+        cfg, tabs, x.data_ptr(), weights.data_ptr(), out.data_ptr(),
+        _cuda.stream(x)), "pyr_branches_launch")
     pyr_branches.launches += 1
     return out
 
@@ -412,10 +472,17 @@ def pyr_pool_fused_eval(x, dw_weights, aff1, merge_weights, aff2, cls_w,
     if not x.is_cuda:
         return pyr_pool_fused_eval_plain(x, dw_weights, aff1, merge_weights,
                                          aff2, cls_w, cls_b, aff3, scales)
+    _cuda.require(x, "x", _DTYPES)
     b, p, h, w = x.shape
+    scales = tuple(scales)
     s_n, o = len(scales), cls_w.shape[1]
     if p > MAX_P:
         raise ValueError(f"kernel limit: P <= {MAX_P}")
+    if s_n > MAX_S:
+        raise ValueError(f"kernel limit: S <= {MAX_S}")
+    dw_weights = dw_weights.to(device=x.device, dtype=torch.float32
+                               ).contiguous()
+    _cuda.require(dw_weights, "dw_weights", (torch.float32,), (s_n, 3, 3, p))
     f32 = torch.float32
     for name, t, shape in (("aff1", aff1, (3, s_n * p)),
                            ("merge_weights", merge_weights, (3, 3, s_n, p)),
@@ -427,16 +494,26 @@ def pyr_pool_fused_eval(x, dw_weights, aff1, merge_weights, aff2, cls_w,
                         for t in (aff1, merge_weights, aff2, cls_w, cls_b,
                                   aff3)])
     out = torch.empty((b, o, h, w), dtype=x.dtype, device=x.device)
-    ks, tab_f, tab_i, x_cap, d_cap = _tail_plan(h, w, tuple(scales),
-                                                x.device)
+    ks, tab_f, tab_i, x_cap, d_cap = _tail_plan(h, w, scales, x.device)
     g, _ = _tail_smem(p, o, scales, tab_f.shape[1], tab_i.shape[1], x_cap,
                       d_cap)
-    # the scratch of the down scales: their depthwise planes at branch
-    # resolution, which the kernel's pre-pass fills
-    _launch("pyr_tail_launch", x, dw_weights, tuple(scales), out,
-            (_cuda.ptr(params), o, g, (ctypes.c_int * s_n)(*ks),
-             _cuda.ptr(tab_f), _cuda.ptr(tab_i), tab_f.shape[1],
-             tab_i.shape[1]), (x_cap, d_cap))
+    kinds, sizes, itab, ftab = _down_plan(h, w, scales, x.device)
+    # the down scales' depthwise planes (f32), filled by the pre-pass
+    scratch = [torch.empty((b * p, hs, ws), dtype=torch.float32,
+                           device=x.device) if k == _KIND_DOWN else None
+               for k, (hs, ws) in zip(kinds, sizes)]
+    ci = ctypes.c_int * s_n
+    lib = _lib()
+    err = lib.pyr_tail_launch(
+        _cuda.ptr(x), 1 if x.dtype == torch.bfloat16 else 0, b, p, h, w, s_n,
+        ci(*kinds), ci(*[hs for hs, _ in sizes]), ci(*[ws for _, ws in sizes]),
+        _cuda.ptr(itab), _cuda.ptr(ftab), _cuda.ptr(dw_weights),
+        _cuda.ptr(params), o, g, ci(*ks), _cuda.ptr(tab_f), _cuda.ptr(tab_i),
+        tab_f.shape[1], tab_i.shape[1],
+        (ctypes.c_void_p * s_n)(*[None if t is None else t.data_ptr()
+                                  for t in scratch]),
+        x_cap, d_cap, _cuda.ptr(out), _cuda.stream(x))
+    _cuda.check(lib, err, "pyr_tail_launch")
     pyr_pool_fused_eval.launches += 1
     return out
 
@@ -457,12 +534,8 @@ def _tail_smem(p: int, o: int, scales: Sequence[float], tile_f: int,
     kernel's register bound)."""
     bw, bh = TAIL_TILE[1] + 2, TAIL_TILE[0] + 2
     sp_n = len(scales) * p
-
-    def up4(n):
-        return -(-n // 4) * 4
-
-    fixed = (up4(3 * sp_n + 3 * p) + up4(9 * sp_n) + 12 * sp_n
-             + o * (up4(p) + 4) + p * TAIL_THREADS + tile_f + tile_i)
+    fixed = (_up4(3 * sp_n + 3 * p) + _up4(9 * sp_n) + 12 * sp_n
+             + o * (_up4(p) + 4) + p * TAIL_THREADS + tile_f + tile_i)
     per_ch = (x_cap + sum(1 for s in scales if s < 1.0) * d_cap
               + 2 * bh * bw)
     g = _group(p, per_ch, TAIL_SMEM_FLOATS - fixed)
@@ -492,14 +565,14 @@ def _lib():
     lib = _cuda.load("pyrpool")
     if lib.pyr_branches_launch.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        head = [vp] + [ci] * 6 + [vp] * 6  # x, dtype..s_n, kinds..taps
-        tail = [vp, ci, ci, vp, vp]        # scratch, r_cap, d_cap, out, stream
-        lib.pyr_branches_launch.argtypes = head + [ci] + tail  # g
-        # params, O, g, band K per scale, the tiles' float and int tables
-        # and their sizes; scratch, the x and down-scale regions' floats,
-        # out, stream
-        lib.pyr_tail_launch.argtypes = head + [vp, ci, ci, vp, vp, vp, ci,
-                                               ci] + [vp, ci, ci, vp, vp]
+        # the launch record, the tables, x, taps, out, stream
+        lib.pyr_branches_launch.argtypes = [vp] * 6
+        # x, dtype..S, kinds..taps; params, O, g, band K per scale, the
+        # tiles' float and int tables and their sizes; scratch, the x and
+        # down-scale regions' floats, out, stream
+        lib.pyr_tail_launch.argtypes = ([vp] + [ci] * 6 + [vp] * 6
+                                        + [vp, ci, ci, vp, vp, vp, ci, ci]
+                                        + [vp, ci, ci, vp, vp])
         lib.pyr_tail_occupancy.argtypes = [ci, ci, ci, vp]
         for fn in (lib.pyr_branches_launch, lib.pyr_tail_launch,
                    lib.pyr_tail_occupancy):
