@@ -31,14 +31,26 @@ Phases (each prints a line; any failure raises and exits non-zero):
      generator (pixel-major pass); img/s, a per-stage breakdown, the
      launch counts, and label agreement with the same generator on the
      plain versions and with the default route.
+  6. train: one ESPNetv2-s2.0 greenhouse model (3 classes) at 256x480,
+     batch 8, fp32, through the port's train step (SGD at the hybrid
+     schedule, class weights from the labels): one step on the kernels
+     against one step on the plain versions from the same weights (loss,
+     every gradient, parameter and BatchNorm statistic), 20 steps on one
+     fixed batch (the loss falls), ms a step, img/s and peak memory over
+     10 timed steps with the branch kernel's launches (4 a step), the
+     forward, backward and optimizer spans of a step, the branch kernel's
+     forward beside its plain backward at the four decoder planes, and
+     the eval step's confusion matrix.
 The last line is {"ok": true, "device": {...}}; the line before it names
-the card, and the one before that lists every kernel as JSON.
+the card, and the one before that lists every kernel as JSON (the branch
+kernel's row also carries its train launches).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
 import os
 import subprocess
@@ -50,6 +62,11 @@ import torch.nn.functional as F
 
 from mspl_tpu_torch.data.label_space import label_conversion_matrix
 from mspl_tpu_torch.data.loader import DataLoader
+from mspl_tpu_torch.engine.losses import compute_class_weights
+from mspl_tpu_torch.engine.metrics import iou_from_confusion
+from mspl_tpu_torch.engine.schedules import build_schedule
+from mspl_tpu_torch.engine.train import (create_train_state, make_eval_step,
+                                         make_train_step)
 from mspl_tpu_torch.layers.eesp import EESP, branch_dilations
 from mspl_tpu_torch.models.espnetv2 import ESPNetv2Segmentation, init_random
 from mspl_tpu_torch.ops import (_cuda, eesp_branches, eesp_stage, pseudo,
@@ -271,9 +288,12 @@ ODD_SCALES = (2.0, 1.25, 1.0, 0.5, 0.1)
 
 
 def tail_odd_calls(dtype, gen):
+    """The odd planes, and the classifier stage of phase 6's 3-class model
+    (P 8, O 3) as its eval step runs it."""
     calls = []
     for (b, p, h, w, o), scales in (((2, 9, 37, 53, 7), ODD_SCALES),
-                                    ((2, 8, 2, 3, 5), SCALES)):
+                                    ((2, 8, 2, 3, 5), SCALES),
+                                    ((8, 8, 128, 240, 3), SCALES)):
         s_n = len(scales)
         calls.append((_rand(gen, (b, p, h, w), 1.0, dtype),
                       _rand(gen, (s_n, 3, 3, p), 0.5), _affine(gen, s_n * p),
@@ -293,9 +313,22 @@ def branch_odd_calls(dtype, gen):
                                          ((2, 8, 2, 3), SCALES))]
 
 
+# the train step's branch-stack planes: bu_dec_l1..l4 of a 3-class model
+# (P 8) at batch 8; 128x240 is the classifier stage, which the fused tail
+# takes in eval
+TRAIN_PLANES = ((16, 30), (32, 60), (64, 120), (128, 240))
+
+
+def branch_train_calls(dtype, gen):
+    return [(_rand(gen, (8, 8, h, w), 1.0, dtype),
+             _rand(gen, (5, 3, 3, 8), 0.5), SCALES) for h, w in TRAIN_PLANES]
+
+
 def resize_odd_calls(dtype, gen):
+    """The odd resizes, and phase 6's eval step's 3-class logits."""
     return [(_rand(gen, (2, 5, 37, 53), 3.0, dtype), (101, 77), True),
-            (_rand(gen, (3, 4, 20, 31), 3.0, dtype), (45, 16), True)]
+            (_rand(gen, (3, 4, 20, 31), 3.0, dtype), (45, 16), True),
+            (_rand(gen, (8, 3, 128, 240), 3.0, dtype), HW, True)]
 
 
 def with_odd(make_calls, odd_calls):
@@ -602,7 +635,8 @@ def phase_kernels():
     err16["fused_pseudo_cm"] = errs[torch.bfloat16]
     err16["pyr_branches"] = check_elementwise(
         pyrpool.pyr_branches, pyrpool.pyr_branches_plain,
-        with_odd(branch_calls, branch_odd_calls), gen, 1e-4, "pyr_branches")
+        with_odd(branch_calls, lambda d, g: branch_odd_calls(d, g)
+                 + branch_train_calls(d, g)), gen, 1e-4, "pyr_branches")
     err16["pyr_pool_fused_eval"] = check_elementwise(
         pyrpool.pyr_pool_fused_eval, pyrpool.pyr_pool_fused_eval_plain,
         with_odd(tail_calls, tail_odd_calls), gen, 1e-4,
@@ -620,8 +654,10 @@ def phase_kernels():
     err16["eesp_stage_fused_eval"], stage_rms = check_stage(gen)
     err16["fused_pseudo_pass_pm"] = check_pm(gen)
     print("phase 3 kernels vs plain at batch 8: fp32 within atol (pseudo "
-          "passes 1e-5 and labels equal where decided, branches/tail 1e-4, "
-          "resize 1e-5, EESP branches and DownSampler front 1e-5 + rtol "
+          "passes 1e-5 and labels equal where decided, branches (with the "
+          "train step's planes up to 128x240) and tail (with the train "
+          "model's 3-class classifier stage) 1e-4, resize (with its 3-class "
+          "logits) 1e-5, EESP branches and DownSampler front 1e-5 + rtol "
           "1e-5, EESP stage 5e-4 + rtol 5e-4), bf16 within one bf16 "
           "rounding (EESP stage: units + 1 roundings of |want| and of the "
           f"rms; its outputs' rms up to {stage_rms:.4g}) | bf16 max |err| "
@@ -1042,14 +1078,328 @@ def phase_routes(n_batches: int, smi: str, gen_default, pool, lab_default,
     return launches_of
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the train step
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 8      # the CLI's --batch-size default
+TRAIN_CLASSES = 3    # greenhouse
+TRAIN_STEPS = 20     # on one fixed batch: 3 warm-up, 10 timed, 7 more
+# kernel step against plain step, both with cuDNN's deterministic
+# algorithms: the loss, the gradients, the updates and the statistics
+# follow the branch kernel's f32 rounding (1e-4 against its plain version)
+# through the network.  Gradients are compared by tensor, relative to the
+# tensor's norm and largest element; updated parameters relative to the
+# tensor's largest update, past 2 ulps of the parameter; each with a floor
+# of a thousandth of the model's largest, since some gradients are 0 in
+# exact arithmetic and their computed values are rounding (a BatchNorm
+# scale at zero bias whose output reaches a train-mode BatchNorm through
+# PReLU and depthwise maps, all positively homogeneous, e.g. each EESP
+# unit's proj_1x1).  Statistics relative (absolute below 1), the loss
+# relative.  The check is held between two readings taken beside it, plain
+# steps with the branch stack's output changed: perturbed by up to 1 ulp
+# (a rounding, which must stay inside the limits), and rounded through bf16
+# or with one scale's branches zeroed (a kernel in lower precision or with
+# a branch lost, each of which must go beyond them).
+TRAIN_TOL = dict(loss=1e-5, grad_norm=2e-2, grad_elem=2e-2, param=2e-2,
+                 stats=1e-5)
+FLOOR = 1e-3
+# the share of valid pixels whose eval prediction may differ between the
+# kernels and the plain versions (logits within 1e-4 move near-ties only)
+EVAL_MOVED = 1e-4
+
+
+def train_case():
+    """A 3-class ESPNetv2-s2.0 (bp 16, proj 8) with random weights from a
+    seed on the CPU, a uint8 batch of 8 at 256x480 with ~10% ignore, and
+    class weights from its labels' histogram."""
+    model = init_random(ESPNetv2Segmentation(TRAIN_CLASSES, s=2.0),
+                        torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 1)
+    images = rng.integers(0, 256, (TRAIN_BATCH, *HW, 3), dtype=np.uint8)
+    labels = rng.integers(0, TRAIN_CLASSES, (TRAIN_BATCH, *HW)).astype(
+        np.int32)
+    labels[rng.random(labels.shape) < 0.1] = 255
+    cw = compute_class_weights(np.bincount(labels[labels != 255],
+                                           minlength=TRAIN_CLASSES))
+    batch = {"image": torch.from_numpy(images).cuda(),
+             "label": torch.from_numpy(labels).cuda()}
+    return model, batch, cw
+
+
+def train_state(model, cw):
+    """SGD (momentum 0.9, weight decay 4e-5) at lr 0.009 on the hybrid
+    schedule (the CLI's defaults) over TRAIN_STEPS steps, one a "epoch"."""
+    model = copy.deepcopy(model).cuda()
+    sched = build_schedule("hybrid", 0.009, TRAIN_STEPS)
+    return (create_train_state(model, "sgd", sched),
+            make_train_step(model, class_weights=cw))
+
+
+def _step_gaps(sa, sb, model0):
+    """The gaps of TRAIN_TOL between two train states after one step from
+    `model0`, and the parameter where each gradient gap peaks."""
+    pa, pb = (dict(st.model.named_parameters()) for st in (sa, sb))
+    before = {k: v.cuda() for k, v in model0.named_parameters()}
+    grads = {k: (pa[k].grad, pb[k].grad) for k in pb}
+    ups = {k: (pb[k] - before[k]).abs().max() for k in pb}
+    g_floor = FLOOR * max(g.abs().max() for _, g in grads.values())
+    g_norm = FLOOR * max(g.norm() for _, g in grads.values())
+    u_floor = FLOOR * max(ups.values())
+    gaps = {"loss": 0.0, "grad_norm": 0.0, "grad_elem": 0.0, "param": 0.0,
+            "stats": 0.0}
+    where = {}
+    for k, (ga, gb) in grads.items():
+        for key, val in (
+                ("grad_norm", (ga - gb).norm() / torch.maximum(gb.norm(),
+                                                               g_norm)),
+                ("grad_elem", (ga - gb).abs().max() / torch.maximum(
+                    gb.abs().max(), g_floor)),
+                ("param", ((pa[k] - pb[k]).abs() - 2.0 ** -22 * pb[k].abs()
+                           ).clamp_min(0).max() / torch.maximum(ups[k],
+                                                                u_floor))):
+            if val.item() > gaps[key]:
+                gaps[key], where[key] = val.item(), k
+    ba = dict(sa.model.named_buffers())
+    for k, t in sb.model.named_buffers():
+        if k.endswith(("running_mean", "running_var")):
+            gap = ((ba[k] - t).abs() / t.abs().clamp_min(1.0)).max().item()
+            gaps["stats"] = max(gaps["stats"], gap)
+    return gaps, where
+
+
+def _ulp_perturbed(fn, gen):
+    """`fn` with its output multiplied by 1 + u * 2^-23, u uniform in
+    [-1, 1) from `gen`: a rounding of up to 1 ulp, element by element."""
+    def perturbed(*args):
+        out = fn(*args)
+        u = torch.rand(out.shape, generator=gen, device=out.device) * 2 - 1
+        return out * (1 + u * 2.0 ** -23)
+    return perturbed
+
+
+def _bf16_rounded(fn):
+    """`fn` with its output rounded through bf16 (2^-9 relative)."""
+    return lambda *args: fn(*args).to(torch.bfloat16).to(torch.float32)
+
+
+def _scale_dropped(fn):
+    """`fn` with its last scale's branches (the last P channels) zeroed."""
+    def dropped(x, *args):
+        out = fn(x, *args)
+        return torch.cat([out[:, :-x.shape[1]],
+                          torch.zeros_like(out[:, -x.shape[1]:])], 1)
+    return dropped
+
+
+def train_controls():
+    """The plain steps that the kernel step's check is held between:
+    (name, branch stack, True where the check must see it)."""
+    plain = pyrpool.pyr_branches_plain
+    return (("1-ulp perturbed", _ulp_perturbed(
+                plain, torch.Generator(device="cuda").manual_seed(SEED)),
+             False),
+            ("bf16-rounded", _bf16_rounded(plain), True),
+            ("one scale dropped", _scale_dropped(plain), True))
+
+
+def check_train_step(model0, batch, cw):
+    """One step on the kernels, one on the plain versions and one for each
+    of `train_controls()`, from the same weights and batch, with cuDNN's
+    deterministic algorithms.  Returns the kernel step's gaps to the plain
+    step, the parameters where they peak, each control's gaps, and the
+    faults: the kernel step or the 1-ulp control beyond TRAIN_TOL, another
+    control within it (the caller prints the gaps, then raises)."""
+    import mspl_tpu_torch.layers.pyramid_pool as pp
+
+    controls = train_controls()
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    states = [train_state(model0, cw) for _ in range(2 + len(controls))]
+    losses = []
+    try:
+        for i, (state, step) in enumerate(states):
+            with plain_kernels() if i else contextlib.nullcontext():
+                if i >= 2:
+                    pp.pyr_branches = controls[i - 2][1]
+                losses.append(step(state, batch)[1]["loss"].item())
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    readings = []
+    for i, (state, _) in enumerate(states):
+        if i == 1:
+            continue
+        gaps, where = _step_gaps(state, states[1][0], model0)
+        gaps["loss"] = abs(losses[i] - losses[1]) / abs(losses[1])
+        readings.append((gaps, where))
+    (gaps, where), ctrl = readings[0], {
+        name: g for (name, _, _), (g, _) in zip(controls, readings[1:])}
+    beyond = lambda g: any(g[k] > t for k, t in TRAIN_TOL.items())  # noqa
+    faults = [f"the kernel step {gaps} (at {where})"] * (
+        not np.isfinite(losses[0]) or beyond(gaps))
+    faults += [f"the {name} step {ctrl[name]}" for name, _, seen in controls
+               if beyond(ctrl[name]) != seen]
+    return gaps, where, ctrl, faults
+
+
+def branch_fwd_bwd(gen):
+    """At each train plane (batch 8, P 8, fp32): the branch kernel's forward,
+    its bound, and its backward (autograd through the recomputed plain
+    version), ms each."""
+    out = {}
+    for (x, wts, scales), (h, w) in zip(
+            branch_train_calls(torch.float32, gen), TRAIN_PLANES):
+        g = torch.randn((x.shape[0], 5 * x.shape[1], h, w), device="cuda",
+                        generator=gen)
+        xr, wr = x.requires_grad_(), wts.requires_grad_()
+
+        def bwd():
+            torch.autograd.grad(pyrpool.pyr_branches_plain(xr, wr, scales),
+                                (xr, wr), g)
+
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: pyrpool.pyr_branches(x, wts, scales))
+        out[(h, w)] = (fwd_ms, bound(*branch_work([(x, wts, scales)]))[0],
+                       time_ms(bwd))
+    return out
+
+
+def step_spans(state, step, batch):
+    """CUDA-event times (ms) of one call of the train step `step`, split by
+    hooks on its model and optimizer: forward (the model), backward (the
+    loss, zero_grad, the backward and the lr) and the optimizer update."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    record = lambda e: (lambda *_: e.record())  # noqa: E731
+    hooks = [state.model.register_forward_pre_hook(record(ev[0])),
+             state.model.register_forward_hook(record(ev[1])),
+             state.optimizer.register_step_pre_hook(record(ev[2])),
+             state.optimizer.register_step_post_hook(record(ev[3]))]
+    try:
+        step(state, batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    ev[3].synchronize()
+    return {k: a.elapsed_time(b) for k, a, b in
+            zip(("forward", "backward", "optimizer"), ev, ev[1:])}
+
+
+def phase_train(smi: str, profile_dir=None):
+    t_phase = time.perf_counter()
+    model0, batch, cw = train_case()
+    gaps, where, ctrl, faults = check_train_step(model0, batch, cw)
+    fmt = lambda g: ", ".join(f"{k} {v:.3g}" for k, v in g.items())  # noqa
+    print(f"phase 6 train: one step on the kernels against one on the plain "
+          f"versions from the same weights and batch (cuDNN deterministic): "
+          f"max gap " + ", ".join(f"{k} {v:.3g} (bound {TRAIN_TOL[k]})"
+                                  for k, v in gaps.items())
+          + f" at {json.dumps(where)}; plain steps with the branch stack's "
+          "output changed, against the plain step: " + "; ".join(
+              f"{name} {fmt(g)}" for name, g in ctrl.items())
+          + " (loss relative; gradients relative to each tensor's norm and "
+          "largest element, parameters to the tensor's largest update, each "
+          f"floored at {FLOOR} of the model's largest; statistics "
+          f"relative) on {smi}", flush=True)
+    if faults:
+        raise AssertionError(f"train step check against {TRAIN_TOL}: "
+                             + "; ".join(faults) + " (the 1-ulp control must "
+                             "be within, the others beyond)")
+
+    state, step = train_state(model0, cw)
+    losses = []
+    for _ in range(3):  # warm-up: cuDNN plans, allocator, the kernel plans
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in ALL_COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(10):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in ALL_COUNTERS.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect = {k: 40 if k == "pyr_branches" else 0 for k in ALL_COUNTERS}
+    if launches != expect:
+        raise AssertionError(f"train launches {launches}, expected {expect}")
+    while len(losses) < TRAIN_STEPS:
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    losses = [v.item() for v in losses]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train losses {losses}")
+    print(f"phase 6 train: {TRAIN_BATCH} x {HW[0]}x{HW[1]} fp32, "
+          f"{TRAIN_CLASSES}-class ESPNetv2-s2.0: {secs * 100:.2f} ms a step, "
+          f"{10 * TRAIN_BATCH / secs:.2f} img/s (10 timed steps after 3, "
+          f"host clock to a synchronize), peak memory {peak:.3f} GiB, "
+          f"pyr_branches {launches['pyr_branches'] / 10:g} launches a step "
+          f"(every other kernel 0) on {smi}", flush=True)
+    print(f"phase 6 train: loss over {TRAIN_STEPS} steps on one batch "
+          f"(lr 0.009 hybrid): " + ", ".join(f"{v:.4f}" for v in losses),
+          flush=True)
+    if profile_dir:
+        profile_sweep(lambda n: [step(state, batch)
+                                 for _ in range(n // TRAIN_BATCH)],
+                      3 * TRAIN_BATCH, os.path.join(profile_dir, "train"),
+                      "phase 6 train")
+    for _ in range(2):  # the last of two
+        spans = step_spans(state, step, batch)
+    print("phase 6 one step by span (ms, CUDA events): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in spans.items())
+          + f" on {smi}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    print("phase 6 pyr_branches at the train planes (batch 8, P 8, fp32; "
+          "ms): " + ", ".join(
+              f"{h}x{w} kernel forward {f:.3f} (bound {bd:.4f}), plain "
+              f"backward {b:.3f}" for (h, w), (f, bd, b) in
+              branch_fwd_bwd(gen).items())
+          + f" on {smi}", flush=True)
+
+    for fn in ALL_COUNTERS.values():
+        fn.launches = 0
+    eval_step = make_eval_step(state.model, TRAIN_CLASSES)
+    cm = eval_step(batch)
+    eval_launches = {k: ALL_COUNTERS[k].launches for k in
+                     ("resize_x2_cm", "pyr_pool_fused_eval", "pyr_branches")}
+    with plain_kernels():
+        cm_plain = eval_step(batch)
+    valid = int((batch["label"] != 255).sum())
+    # each pixel whose prediction differs moves 1 out of one cell and into
+    # another; only near-ties may move
+    moved = int((cm - cm_plain).abs().sum().item()) // 2
+    if cm.shape != (TRAIN_CLASSES,) * 2 or int(cm.sum().item()) != valid:
+        raise AssertionError(f"eval confusion matrix holds {cm.sum().item()}"
+                             f" of {valid} valid pixels")
+    if moved > EVAL_MOVED * valid:
+        raise AssertionError(f"eval step on the kernels against the plain "
+                             f"versions: {moved} of {valid} pixels moved, "
+                             f"beyond {EVAL_MOVED}")
+    if eval_launches != {"resize_x2_cm": 1, "pyr_pool_fused_eval": 1,
+                         "pyr_branches": 3}:
+        raise AssertionError(f"eval step launches {eval_launches}")
+    _, miou = iou_from_confusion(cm.cpu().numpy())
+    print(f"phase 6 eval step: confusion matrix of {int(cm.sum().item())} "
+          f"valid pixels (all of them), {moved} of them predicted otherwise "
+          f"than by the same step on the plain versions (bound "
+          f"{EVAL_MOVED} of them), mIoU {miou:.4f} after {state.step} steps, "
+          f"launches {json.dumps(eval_launches)} on {smi} | phase 6 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches["pyr_branches"]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batches", type=int, default=8,
                     help="timed batches of 128 of the main path and of each "
                          "phase-5 route (default 8)")
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile one main-path sweep, and one sweep "
-                         "of the fuse_stages route, into DIR")
+                    help="also profile one main-path sweep, one sweep of "
+                         "the fuse_stages route and three train steps, "
+                         "into DIR")
     args = ap.parse_args()
     smi = phase_device()
     phase_build()
@@ -1058,8 +1408,12 @@ def main():
         args.batches, smi, args.profile)
     launches.update(phase_routes(args.batches, smi, gen, pool, lab_default,
                                  args.profile))
+    del gen, pool
+    train_launches = phase_train(smi, args.profile)
     for r in rows:
         r["launches"] = launches[r["name"]]
+        if r["name"] == "pyr_branches":
+            r["train_launches"] = train_launches
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,8 @@ version, which CPU tensors take.
 
 Entry points run on the card unless the caller passes `device="cpu"`:
 `pseudo.generate.make_source`, `PseudoLabelGenerator`,
-`generate_pseudo_labels`.
+`generate_pseudo_labels`, and `engine.train.create_train_state`,
+`make_train_step` and `make_eval_step`, which move the model there.
 """
 
-__all__ = ["data", "layers", "models", "ops", "pseudo", "utils"]
+__all__ = ["data", "engine", "layers", "models", "ops", "pseudo", "utils"]

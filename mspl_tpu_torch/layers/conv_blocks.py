@@ -1,14 +1,15 @@
 """Convolution building blocks (port of mspl_tpu/layers/conv_blocks.py):
 `C`, `CDilated`, `CB`, `CBR`, `BR` and per-channel `PReLU`, on NCHW.
 
-Eval mode only in this slice: BatchNorm normalizes with its running
-statistics (eps 1e-5) and a train-mode forward raises.  Parameters stay
-f32; a bf16 activation runs its conv in bf16 with the weights cast to bf16
-(as flax's `dtype=x.dtype`), and BatchNorm computes in f32 and rounds once,
-as flax's does.  BatchNorm is not folded into the conv before it: on the
-H100 the conv's bias then runs as a separate broadcast add that costs more
-than the BatchNorm pass (chip_smoke.py --profile, PERF.md).  Grouped and
-depthwise convolutions are native `groups=`.
+BatchNorm (eps 1e-5) normalizes with its running statistics in eval and
+with the batch's in train, where it also updates the running ones as flax
+does.  Parameters stay f32; a bf16 activation runs its conv in bf16 with
+the weights cast to bf16 (as flax's `dtype=x.dtype`), and BatchNorm
+computes in f32 and rounds once, as flax's does.  BatchNorm is not folded
+into the conv before it: on the H100 the conv's bias then runs as a
+separate broadcast add that costs more than the BatchNorm pass
+(chip_smoke.py --profile, PERF.md).  Grouped and depthwise convolutions
+are native `groups=`.
 """
 
 from __future__ import annotations
@@ -18,9 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 BN_EPS = 1e-5
-TRAIN_SLICE = ("a train-mode forward belongs to the training slice of the "
-               "PyTorch port (train step and self-training round); this "
-               "slice runs eval only")
+BN_MOMENTUM = 0.9  # flax's convention: running = 0.9 * running + 0.1 * batch
 
 
 class PReLU(nn.Module):
@@ -35,9 +34,16 @@ class PReLU(nn.Module):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm2d (eps 1e-5) in eval: (x - mean) * scale / sqrt(var + eps)
-    + bias, computed in f32 and rounded once to x's dtype (one pass; a bf16
-    activation keeps f32 statistics, as flax's BatchNorm does)."""
+    """BatchNorm2d (eps 1e-5): (x - mean) * scale / sqrt(var + eps) + bias,
+    computed in f32 and rounded once to x's dtype (a bf16 activation keeps
+    f32 statistics, as flax's BatchNorm does).
+
+    Eval takes the running statistics.  Train takes the batch's mean and
+    biased variance over (B, H, W) and updates the running statistics as
+    flax does: running = 0.9 * running + 0.1 * batch, with the *biased*
+    variance.  torch's own update (`F.batch_norm(training=True)` with
+    buffers) would take the unbiased one, so the buffers are updated here,
+    under no_grad, and torch normalizes without them."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=BN_EPS)
@@ -49,10 +55,18 @@ class BatchNorm(nn.BatchNorm2d):
         return a, self.bias - self.running_mean * a
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(TRAIN_SLICE)
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        xf = x.to(torch.float32)
+        with torch.no_grad():
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean,
+                                                     alpha=1 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var,
+                                                    alpha=1 - BN_MOMENTUM)
+        return F.batch_norm(xf, None, None, self.weight, self.bias, True,
+                            0.0, self.eps).to(x.dtype)
 
 
 class C(nn.Module):

@@ -8,7 +8,9 @@ it with a 3x3/s2 average pool and adds the RGB reinforcement branch.  The
 depthwise branches are native grouped convolutions by default;
 `use_pallas=True` sends a stride-1 unit's branch stack + HFF to the CUDA
 kernel of `ops/eesp_branches.py`, as the JAX package's flag sends it to its
-Pallas kernel.  The parameter tree is the same either way.
+Pallas kernel.  The parameter tree is the same either way.  Both units run
+in train mode (BatchNorm on batch statistics) on the native route; the
+kernel route is eval only, since its TPU kernel has no VJP.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ def _avg_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
 
 
 class EESP(nn.Module):
-    """Extremely Efficient Spatial Pyramid unit (eval)."""
+    """Extremely Efficient Spatial Pyramid unit."""
 
     def __init__(self, nin: int, nout: int, stride: int = 1, k: int = 4,
                  r_lim: int = 7, down_method: str = "esp",
@@ -72,6 +74,11 @@ class EESP(nn.Module):
         # so no path of the reference takes it.  Strided units keep
         # F.conv2d whatever `use_pallas` says.
         if self.use_pallas and self.stride == 1:
+            if self.training:
+                raise NotImplementedError(
+                    "use_pallas routes an EESP unit through the eval-only "
+                    "branch kernel (its TPU kernel, pallas_eesp.py, has no "
+                    "VJP); train with use_pallas=False")
             # the K kernels in the kernel's [K, 3, 3, n] layout, stacked on
             # their own device (no host round trip)
             taps = torch.stack([wk[:, 0] for wk in self.dw])
@@ -98,7 +105,8 @@ class EESP(nn.Module):
 
 
 class DownSampler(nn.Module):
-    """Strided EESP ++ avg-pool shortcut ++ RGB input reinforcement."""
+    """Strided EESP ++ avg-pool shortcut ++ input reinforcement from the
+    `img_ch`-channel image (RGB, or RGB-D with 4)."""
 
     def __init__(self, nin: int, nout: int, k: int = 4, r_lim: int = 9,
                  reinf: bool = True, img_ch: int = 3):

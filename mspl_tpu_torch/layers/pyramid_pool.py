@@ -1,17 +1,21 @@
 """Efficient pyramid-pool decoder blocks (port of
-mspl_tpu/layers/pyramid_pool.py), eval mode.
+mspl_tpu/layers/pyramid_pool.py).
 
 `EfficientPyrPool`: proj 1x1 CBR, a depthwise 3x3 at five scales (resample,
 depthwise, resample back), concat, BN+PReLU, channel shuffle, grouped 3x3
-merge CBR, 1x1 classifier (+ last BR).  With `pre` (the lower-resolution
-decoder tensor to upsample and add before the block) the proj conv is
-commuted with the upsample, as the JAX eval path does: conv+BN is a
+merge CBR, 1x1 classifier (+ last BR).  `pre` is the lower-resolution
+decoder tensor to upsample and add before the block.  In eval the proj conv
+is commuted with that upsample, as the JAX eval path does: conv+BN is a
 per-channel affine in eval and align_corners bilinear rows sum to 1, so
 CBR(up(pre) + x) == PReLU(up(conv(pre) * a) + conv(x) * a + b), and the
-upsample runs at proj width.  The branch stack goes through the
-`pyr_branches` kernel; with `fuse_tail` the whole block after the proj goes
-through the `pyr_pool_fused_eval` kernel and the output is channel-major
-logits, as the JAX classifier stage (`fuse_tail`, `channel_major_out`).
+upsample runs at proj width.  Train keeps the reference's order, x +
+up(pre) and then the proj CBR: train-mode BatchNorm normalizes with the
+statistics of the merged input, which must not be split.  The branch
+stack goes through the `pyr_branches` kernel (differentiable in train);
+with `fuse_tail` the whole eval block after the proj goes through the
+`pyr_pool_fused_eval` kernel, as the JAX classifier stage (`fuse_tail`,
+`channel_major_out`), while train runs the plain tail.  Either way the
+output is channel-major.
 `EfficientPWC`: grouped 3x3 expansion gated by a global-context sigmoid.
 """
 
@@ -24,7 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mspl_tpu_torch.layers.conv_blocks import BR, C, CBR, TRAIN_SLICE
+from mspl_tpu_torch.layers.conv_blocks import BR, C, CBR
 from mspl_tpu_torch.ops.pyrpool import (channel_shuffle, prelu,
                                         pyr_branches, pyr_pool_fused_eval)
 from mspl_tpu_torch.ops.resize import resize_bilinear
@@ -84,9 +88,13 @@ class EfficientPyrPool(nn.Module):
     def forward(self, x: torch.Tensor,
                 pre: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(TRAIN_SLICE)
-        x = self.proj(x) if pre is None else self._proj_commuted(x, pre)
-        if self.fuse_tail:
+            if pre is not None:
+                x = x + resize_bilinear(pre, (x.shape[2], x.shape[3]),
+                                        align_corners=True, order="wh")
+            x = self.proj(x)
+        else:
+            x = self.proj(x) if pre is None else self._proj_commuted(x, pre)
+        if self.fuse_tail and not self.training:
             aff1, mw, aff2, cls_w, cls_b, aff3 = self._tail_params()
             return pyr_pool_fused_eval(x, self.dw_weights, aff1, mw, aff2,
                                        cls_w, cls_b, aff3, self.scales)

@@ -7,14 +7,24 @@ bottom-up decoder and emits channel-major [B, C, H, W] logits: the
 classifier stage is the fused pyramid-pool kernel and the final x2 upsample
 the resize kernel, as the JAX model with `channel_major_logits=True`.
 `compute_dtype=torch.bfloat16` keeps the parameters in f32 and runs the
-activations in bf16; the logits come out in bf16.  The classification head
-(ImageNet pretraining) and a train-mode forward belong to later slices.
+activations in bf16; the logits come out in bf16.  `in_channels` is the
+image's channel count (4 for RGB-D), as the JAX model reads it from its
+input.  The classification head (ImageNet pretraining) belongs to a later
+slice.
+
+Train mode (`model.train()`) runs BatchNorm on batch statistics, the
+decoder in the reference's train order (`layers/pyramid_pool.py`), the
+branch stack through the differentiable `pyr_branches`, and the final x2
+resize as the plain matrix resize, as the JAX model's train forward takes
+`resize_bilinear` outside any kernel; eval keeps the resize kernel.
 
 Encoder routes, as the JAX model's flags: `use_pallas=True` sends each
 stride-1 EESP unit's branch stack to the kernel of `ops/eesp_branches.py`;
 `fuse_stages=True` runs each stride-1 stage (level3, level4) through the
-fused-stage kernel of `ops/eesp_stage.py` (eval only) and takes precedence
-over `use_pallas` there.  The parameter tree is the same for every flag.
+fused-stage kernel of `ops/eesp_stage.py` and takes precedence over
+`use_pallas` there; in train the stages run unit by unit, as the
+reference's do (`fuse and not train`).  The parameter tree is the same
+for every flag.
 """
 
 from __future__ import annotations
@@ -25,13 +35,13 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
-from mspl_tpu_torch.layers.conv_blocks import CBR, TRAIN_SLICE
+from mspl_tpu_torch.layers.conv_blocks import CBR
 from mspl_tpu_torch.layers.eesp import (EESP, DownSampler, _avg_pool_3x3_s2,
                                         branch_dilations)
 from mspl_tpu_torch.layers.pyramid_pool import EfficientPWC, EfficientPyrPool
 from mspl_tpu_torch.ops.eesp_stage import (eesp_block_params,
                                            eesp_stage_fused_eval)
-from mspl_tpu_torch.ops.resize_x2 import resize_x2_cm
+from mspl_tpu_torch.ops.resize_x2 import resize_x2_cm, resize_x2_cm_plain
 
 
 def eespnet_channel_plan(s: float) -> Tuple[int, ...]:
@@ -57,23 +67,27 @@ class EESPNet(nn.Module):
 
     def __init__(self, s: float = 2.0, reinf: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
-                 use_pallas: bool = False, fuse_stages: bool = False):
+                 use_pallas: bool = False, fuse_stages: bool = False,
+                 in_channels: int = 3):
         super().__init__()
         cfg = eespnet_channel_plan(s)
         self.reinf = reinf
         self.compute_dtype = compute_dtype
         self.fuse_stages = fuse_stages
-        self.level1 = CBR(3, cfg[0], 3, stride=2)
+        self.level1 = CBR(in_channels, cfg[0], 3, stride=2)
         self.level2_0 = DownSampler(cfg[0], cfg[1], k=_STAGE_K[0],
-                                    r_lim=_STAGE_RLIM[0], reinf=reinf)
+                                    r_lim=_STAGE_RLIM[0], reinf=reinf,
+                                    img_ch=in_channels)
         self.level3_0 = DownSampler(cfg[1], cfg[2], k=_STAGE_K[1],
-                                    r_lim=_STAGE_RLIM[1], reinf=reinf)
+                                    r_lim=_STAGE_RLIM[1], reinf=reinf,
+                                    img_ch=in_channels)
         self.level3_blocks = nn.ModuleList(
             [EESP(cfg[2], cfg[2], k=_STAGE_K[2], r_lim=_STAGE_RLIM[2],
                   use_pallas=use_pallas)
              for _ in range(_STAGE_REPS[1])])
         self.level4_0 = DownSampler(cfg[2], cfg[3], k=_STAGE_K[2],
-                                    r_lim=_STAGE_RLIM[2], reinf=reinf)
+                                    r_lim=_STAGE_RLIM[2], reinf=reinf,
+                                    img_ch=in_channels)
         self.level4_blocks = nn.ModuleList(
             [EESP(cfg[3], cfg[3], k=_STAGE_K[3], r_lim=_STAGE_RLIM[3],
                   use_pallas=use_pallas)
@@ -82,10 +96,8 @@ class EESPNet(nn.Module):
     def _run_stage(self, x: torch.Tensor, blocks: nn.ModuleList, k: int,
                    r_lim: int) -> torch.Tensor:
         """A stride-1 EESP stage: the fused-stage kernel when `fuse_stages`
-        is set (eval only), unit by unit otherwise."""
-        if blocks and self.fuse_stages:
-            if self.training:
-                raise NotImplementedError(TRAIN_SLICE)
+        is set in eval, unit by unit otherwise."""
+        if blocks and self.fuse_stages and not self.training:
             return eesp_stage_fused_eval(
                 x, [eesp_block_params(blk) for blk in blocks],
                 branch_dilations(k, r_lim))
@@ -120,7 +132,8 @@ class ESPNetv2Segmentation(nn.Module):
                  dec_base_planes: int = 16,
                  compute_dtype: torch.dtype = torch.float32,
                  channel_major_logits: bool = True,
-                 use_pallas: bool = False, fuse_stages: bool = False):
+                 use_pallas: bool = False, fuse_stages: bool = False,
+                 in_channels: int = 3):
         super().__init__()
         if not channel_major_logits:
             raise ValueError("the port's logits are channel-major (NCHW); "
@@ -134,7 +147,8 @@ class ESPNetv2Segmentation(nn.Module):
         proj = min(bp, max(num_classes // 2, 8))
         self.base_net = EESPNet(s=s, reinf=True, compute_dtype=compute_dtype,
                                 use_pallas=use_pallas,
-                                fuse_stages=fuse_stages)
+                                fuse_stages=fuse_stages,
+                                in_channels=in_channels)
         self.bu_dec_l1 = EfficientPyrPool(cfg[3], proj, dec[0])
         self.merge_l2 = EfficientPWC(cfg[2], dec[0])
         self.bu_dec_l2 = EfficientPyrPool(dec[0], proj, dec[1])
@@ -145,14 +159,13 @@ class ESPNetv2Segmentation(nn.Module):
                                           last_layer_br=False, fuse_tail=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(TRAIN_SLICE)
         l1, l2, l3, l4 = self.base_net.encode(x)
         out = self.bu_dec_l1(l4)
         out = self.bu_dec_l2(self.merge_l2(l3), pre=out)
         out = self.bu_dec_l3(self.merge_l3(l2), pre=out)
         out = self.bu_dec_l4(self.merge_l4(l1), pre=out)  # [B, C, H/2, W/2]
-        return resize_x2_cm(out, (x.shape[2], x.shape[3]), align_corners=True)
+        resize = resize_x2_cm_plain if self.training else resize_x2_cm
+        return resize(out, (x.shape[2], x.shape[3]), align_corners=True)
 
 
 def init_random(model: nn.Module, generator: Optional[torch.Generator] = None

@@ -11,6 +11,15 @@ argmax and confidence, then `conf >= kc[label]` else ignore.  With
 Bound on the card: bytes (every logit read once, 8 bytes written per
 pixel); see the source note in csrc/pseudo_cm.cu for the design and
 `launch_plan` for what the wrapper decides per call.
+
+Kernel limits, which the reference does not have (the plain version has
+none; on the card the wrapper raises): at most MAX_MODELS = 4 models,
+MAX_C = 32 source classes a model and MAX_T1 - 1 = 7 target classes; the
+pixel-major pass ⑧ (`ops/pseudo.py`) shares them.  A self-training round's
+ensemble, the three sources plus the target model, fills the 4 models
+exactly, so whoever picks the sources (the self-training slice, the CLI)
+must keep to them.  The pyramid-pool tail ② (`ops/pyrpool.py`) takes
+P <= 16 and S <= 8.
 """
 
 from __future__ import annotations

@@ -2,8 +2,10 @@
 their plain PyTorch versions.
 
 * `pyr_branches` replaces mspl_tpu/ops/pallas_pyrpool.py::pyr_branches_pallas
-  (the five-scale branch stack of bu_dec_l1..l3, forward only: its backward
-  comes with the training slice of the port).
+  (the five-scale branch stack of bu_dec_l1..l3 in eval, of every decoder
+  stage in train).  It is differentiable: as the TPU kernel's custom VJP
+  differentiates the jnp reference, its backward is autograd through
+  `pyr_branches_plain`, recomputed from the saved input and weights.
 * `pyr_pool_fused_eval` replaces pyr_pool_fused_eval_v3 and its v2/v1
   fallbacks (one contract): the whole eval EfficientPyrPool after the proj
   conv, for the classifier stage bu_dec_l4.
@@ -434,17 +436,56 @@ def _group(p: int, per_ch: int, budget: int) -> int:
     return max(1, min(p, budget // per_ch))
 
 
+class _PyrBranches(torch.autograd.Function):
+    """The branch-stack kernel under autograd.  The forward launches the
+    kernel.  The backward differentiates `pyr_branches_plain`, recomputed
+    from the saved x and weights: the TPU kernel's custom VJP is `jax.vjp`
+    of its jnp reference (mspl_tpu/ops/pallas_pyrpool.py
+    `_branches_with_vjp`), so
+    this is the one place where a plain version runs on the card, by the
+    reference's design.  Gradients reach x and the f32 [S, 3, 3, P]
+    weights."""
+
+    @staticmethod
+    def forward(ctx, x, weights, scales):
+        ctx.scales = scales
+        ctx.save_for_backward(x, weights)
+        return _launch_branches(x, weights, scales)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, weights = ctx.saved_tensors
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_(ctx.needs_input_grad[0])
+            wr = weights.detach().requires_grad_(ctx.needs_input_grad[1])
+            out = pyr_branches_plain(xr, wr, ctx.scales)
+            wrt = [t for t in (xr, wr) if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wrt, grad_out))
+        return (next(grads) if xr.requires_grad else None,
+                next(grads) if wr.requires_grad else None, None)
+
+
 def pyr_branches(x: torch.Tensor, weights: torch.Tensor,
                  scales: Sequence[float]) -> torch.Tensor:
     """Five-scale branch stack: x [B, P, H, W], weights [S, 3, 3, P] ->
     [B, S*P, H, W] (channel si*P + c) in x.dtype.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel (one launch: pre-pass
-    blocks write the down scales' branches, band blocks the others)."""
+    plain version (under autograd, if it records); CUDA tensors launch the
+    kernel (one launch: pre-pass blocks write the down scales' branches,
+    band blocks the others), through `_PyrBranches` when autograd
+    records a gradient for x or the weights."""
     if not x.is_cuda:
         return pyr_branches_plain(x, weights, scales)
+    scales = tuple(scales)
+    if torch.is_grad_enabled() and (x.requires_grad or weights.requires_grad):
+        return _PyrBranches.apply(x, weights, scales)
+    return _launch_branches(x, weights, scales)
+
+
+def _launch_branches(x: torch.Tensor, weights: torch.Tensor,
+                     scales: Tuple[float, ...]) -> torch.Tensor:
+    """One launch of the branch-stack kernel (see `pyr_branches`)."""
     _cuda.require(x, "x", _DTYPES)
     b, p, h, w = x.shape
-    scales = tuple(scales)
     if len(scales) > MAX_S:
         raise ValueError(f"kernel limit: S <= {MAX_S}")
     weights = weights.to(device=x.device, dtype=torch.float32).contiguous()

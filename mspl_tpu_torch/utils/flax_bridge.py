@@ -6,6 +6,10 @@ dicts of numpy arrays (the caller converts JAX arrays with `np.asarray`;
 this package never imports JAX) and copies every leaf into the matching
 parameter or buffer of the port's `ESPNetv2Segmentation`, in place.
 
+A tree of an RGB-D model (a 4-channel stem) loads into a model built with
+`in_channels=4`; a tree and a model of different channel counts raise on
+the stem's shape.
+
 Conversions: conv kernels HWIO -> OIHW (grouped ones included: flax keeps
 them as (kh, kw, cin/groups, cout), torch as (cout, cin/groups, kh, kw));
 an EESP depthwise kernel `dw_d{i}` (3, 3, 1, n) -> (n, 1, 3, 3); the

@@ -33,7 +33,8 @@ def test_port_file_imports_no_jax(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, mspl_tpu_torch.pseudo.generate, "
-            "mspl_tpu_torch.pseudo.cbst, mspl_tpu_torch.data.loader; "
+            "mspl_tpu_torch.pseudo.cbst, mspl_tpu_torch.data.loader, "
+            "mspl_tpu_torch.engine.train; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
