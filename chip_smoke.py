@@ -11,7 +11,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
   3. kernels: each kernel against its plain PyTorch version at the main
      path's shapes (fp32 first, then bf16; the fused pass, the branch
      stack, the pyramid-pool tail and the logits resize also at odd shapes
-     off the main path), the tail's band widths and blocks per SM, then
+     off the main path; both fused passes also on a self-training round's
+     mixed ensemble, 3 bf16 sources and an f32 3-class model, timed at the
+     round's batch), the tail's band widths and blocks per SM, then
      each kernel's time at batch 128 (the branch stack's also plane by
      plane) beside the plain version's, a library call's where one
      computes the same function, and its bound on an H100 (memory at
@@ -41,9 +43,20 @@ Phases (each prints a line; any failure raises and exits non-zero):
      forward, backward and optimizer spans of a step, the branch kernel's
      forward beside its plain backward at the four decoder planes, and
      the eval step's confusion matrix.
+  7. self-training: two rounds of `self_training` at full width (phase 4's
+     bf16 sources, an f32 3-class ESPNetv2-s2.0 target model, 64
+     synthetic target images and 16 labeled val images at 256x480,
+     SelfTrainConfig's defaults but for 2 rounds of 1 epoch: 8 augmented
+     steps a round, the target model in the ensemble from round 1): per
+     round p, kc, kept share, val mIoU, generation / kc sweep / train /
+     eval times and the launch counts; gated against the same rounds on
+     the plain versions (label agreement per round, round 0's kc, the
+     tuned model's parameters after round 0), held between three controls
+     of the fine-tune.
 The last line is {"ok": true, "device": {...}}; the line before it names
 the card, and the one before that lists every kernel as JSON (the branch
-kernel's row also carries its train launches).
+kernel's row also carries its train launches, and every row its launches
+in phase 7's two rounds).
 """
 
 from __future__ import annotations
@@ -187,48 +200,92 @@ def pseudo_calls(b, dtype, gen, hw=HW):
 # a pixel count that is not a multiple of 4: the fused pass's planes then
 # start off a vector load's word and the kernel loads element by element
 PSEUDO_ODD = (3, (17, 29))
+# a self-training round's ensemble from round 1 on: the three bf16 sources
+# and the f32 target model (3 classes, identity table), at the round's
+# generation batch; its thresholds lie off the discrete confidences of 4
+# votes (2 of 4 votes give 0.5 both as a share and as an entropy), where
+# no pixel is decided
+ROUND_BATCH = 8
+MIXED_KC = (0.45, 0.55, 0.6)
+
+
+def identity_table(t: int = 3) -> np.ndarray:
+    return np.concatenate([np.eye(t, dtype=np.float32),
+                           np.zeros((t, 1), np.float32)], axis=1)
+
+
+def mixed_calls(b, gen, hw=HW, channel_last=False):
+    """Logits of the round's mixed ensemble (bf16 sources, f32 target) and
+    their tables."""
+    shape = (lambda c: (b, *hw, c)) if channel_last else (
+        lambda c: (b, c, *hw))
+    logits = [_rand(gen, shape(c), 2.0, torch.bfloat16) for _, c in SOURCES]
+    logits.append(_rand(gen, shape(3), 2.0, torch.float32))
+    convs = [label_conversion_matrix(n) for n, _ in SOURCES]
+    return logits, convs + [identity_table()]
 
 
 def _pseudo_decided(logits, convs, mode, kc, conf, lbl_plain):
     """Pixels whose label no rounding can flip: top-2 margin of the fused
     (soft) or every per-model (hard) distribution above 1e-5, and the
-    confidence more than 1e-5 away from its threshold."""
+    confidence more than 1e-5 away from the threshold of the class it
+    votes for, unless too few models vote for that class (hard fusion's
+    min_agree, which sets the label to ignore whatever the confidence)."""
     qs = []
     for x, c in zip(logits, convs):
         p = torch.softmax(x.float(), dim=1)
         qs.append(torch.einsum("bchw,ct->bthw", p,
                                torch.from_numpy(c).cuda()))
-    t = convs[0].shape[1] - 1
+    t, n = convs[0].shape[1] - 1, len(qs)
     if mode == "soft":
-        top2 = torch.topk(sum(qs)[:, :t] / len(qs), 2, dim=1).values
+        fused = sum(qs)[:, :t] / n
+        top2 = torch.topk(fused, 2, dim=1).values
         margin = top2[:, 0] - top2[:, 1]
+        label, voted = fused.argmax(1), torch.ones_like(margin, dtype=bool)
     else:
         margin = torch.stack([
             (lambda v: v[:, 0] - v[:, 1])(torch.topk(q, 2, dim=1).values)
             for q in qs]).amin(0)
-    thr = torch.where(lbl_plain == 255, 0.0, kc)
-    return (margin > 1e-5) & ((conf - thr).abs() > 1e-5)
+        votes = sum(F.one_hot(q.argmax(1), t + 1)[..., :t] for q in qs)
+        label, voted = votes.argmax(-1), votes.amax(-1) >= n // 2 + 1
+    kc = torch.broadcast_to(torch.as_tensor(kc, device=conf.device), (t,))
+    near = (conf - kc[label]).abs() <= 1e-5
+    return (margin > 1e-5) & ~(voted & near)
+
+
+FUSIONS = (("soft", "prob"), ("soft", "entropy"), ("hard", "prob"),
+           ("hard", "entropy"))
 
 
 def check_pseudo(gen):
-    convs = [label_conversion_matrix(n) for n, _ in SOURCES]
-    kc = torch.full((3,), KC, device="cuda")
+    """fp32 and bf16 ensembles at the main path's shape and an odd one,
+    and the round's mixed ensemble (bf16 sources, f32 target model; dtype
+    "mixed") at its batch, every fusion and confidence, and at the odd
+    shape."""
+    src_convs = [label_conversion_matrix(n) for n, _ in SOURCES]
+    kc_src = torch.full((3,), KC, device="cuda")
+    kc_mixed = torch.tensor(MIXED_KC, device="cuda")
     errs = {}
     runs = [(torch.float32, combo, shape)
-            for shape in ((8, HW), PSEUDO_ODD)
-            for combo in (("soft", "prob"), ("soft", "entropy"),
-                          ("hard", "prob"), ("hard", "entropy"))]
+            for shape in ((8, HW), PSEUDO_ODD) for combo in FUSIONS]
     runs += [(torch.bfloat16, ("soft", "prob"), shape)
              for shape in ((8, HW), PSEUDO_ODD)]
+    runs += [("mixed", combo, (ROUND_BATCH, HW)) for combo in FUSIONS]
+    runs += [("mixed", ("soft", "prob"), PSEUDO_ODD)]
     for dtype, (mode, conf_mode), (b, hw) in runs:
-        (logits,), = pseudo_calls(b, dtype, gen, hw)
+        if dtype == "mixed":
+            logits, convs = mixed_calls(b, gen, hw)
+            kc = kc_mixed
+        else:
+            (logits,), = pseudo_calls(b, dtype, gen, hw)
+            convs, kc = src_convs, kc_src
         got_l, got_c = pseudo_cm.fused_pseudo_cm(
             logits, convs, kc, mode=mode, conf_mode=conf_mode)
         want_l, want_c = pseudo_cm.fused_pseudo_cm_plain(
             logits, convs, kc, mode=mode, conf_mode=conf_mode)
         tag = f"fused_pseudo_cm {mode}/{conf_mode} {dtype} {b}x{hw}"
         err = check_close(tag, got_c, want_c, atol=1e-5)
-        decided = _pseudo_decided(logits, convs, mode, KC, want_c, want_l)
+        decided = _pseudo_decided(logits, convs, mode, kc, want_c, want_l)
         bad = int(((got_l != want_l) & decided).sum())
         if bad or decided.float().mean() < 0.99:
             raise AssertionError(f"{tag}: {bad} decided labels differ "
@@ -478,17 +535,25 @@ def pm_calls(b, dtype, gen):
 
 def check_pm(gen):
     """The pixel-major pass against its plain version: confidences within
-    1e-5, labels equal where no rounding can flip them."""
-    convs = [label_conversion_matrix(n) for n, _ in SOURCES]
+    1e-5, labels equal where no rounding can flip them; fp32, bf16, and
+    the round's mixed ensemble.  Returns the largest confidence error of
+    bf16 and of the mixed ensemble."""
+    src_convs = [label_conversion_matrix(n) for n, _ in SOURCES]
     kc = torch.full((3,), KC, device="cuda")
-    err16 = 0.0
-    for dtype, combos in ((torch.float32, [("soft", "prob", kc),
-                                           ("soft", "entropy", kc),
-                                           ("hard", "prob", kc),
-                                           ("hard", "entropy", kc),
-                                           ("soft", "prob", None)]),
-                          (torch.bfloat16, [("soft", "prob", kc)])):
-        (logits,), = pm_calls(8, dtype, gen)
+    kc_mixed = torch.tensor(MIXED_KC, device="cuda")
+    err16 = {}
+
+    def every(k):
+        return [(m, c, k) for m, c in FUSIONS] + [("soft", "prob", None)]
+
+    for dtype, combos in ((torch.float32, every(kc)),
+                          (torch.bfloat16, [("soft", "prob", kc)]),
+                          ("mixed", every(kc_mixed))):
+        if dtype == "mixed":
+            logits, convs = mixed_calls(ROUND_BATCH, gen, channel_last=True)
+        else:
+            (logits,), = pm_calls(8, dtype, gen)
+            convs = src_convs
         for mode, conf_mode, k in combos:
             got_l, got_c = pseudo.fused_pseudo_pass_pm(
                 logits, convs, mode=mode, kc=k, conf_mode=conf_mode)
@@ -498,14 +563,14 @@ def check_pm(gen):
                    f"{'' if k is not None else '/no kc'} {dtype}")
             err = check_close(tag, got_c, want_c, atol=1e-5)
             decided = _pseudo_decided([x.permute(0, 3, 1, 2) for x in logits],
-                                      convs, mode, KC if k is not None
+                                      convs, mode, k if k is not None
                                       else 0.0, want_c, want_l)
             bad = int(((got_l != want_l) & decided).sum())
             if bad or decided.float().mean() < 0.99:
                 raise AssertionError(f"{tag}: {bad} decided labels differ "
                                      f"({decided.float().mean():.4f} decided)")
-            if dtype == torch.bfloat16:
-                err16 = max(err16, err)
+            if dtype != torch.float32:
+                err16[dtype] = max(err16.get(dtype, 0.0), err)
     return err16
 
 
@@ -609,6 +674,31 @@ def pm_work(calls):
     return pseudo_work([([x.permute(0, 3, 1, 2) for x in logits],)])
 
 
+def print_mixed_times(gen):
+    """Both fused passes at the round's generation batch: the mixed
+    ensemble of round 1 on beside round 0's three bf16 sources, kernel and
+    plain version, with the bound (bytes)."""
+    kc = torch.full((3,), KC, device="cuda")
+    parts = []
+    for name, kern, plain, cl, fmt in (
+            ("fused_pseudo_cm", pseudo_cm.fused_pseudo_cm,
+             pseudo_cm.fused_pseudo_cm_plain, False, lambda x: x),
+            ("fused_pseudo_pass_pm",
+             lambda lg, cv, k: pseudo.fused_pseudo_pass_pm(lg, cv, kc=k),
+             lambda lg, cv, k: pseudo.fused_pseudo_pass_plain(lg, cv, kc=k),
+             True, lambda x: x.permute(0, 3, 1, 2))):
+        mixed, convs = mixed_calls(ROUND_BATCH, gen, channel_last=cl)
+        for what, logits, cv in (("mixed", mixed, convs),
+                                 ("bf16 sources", mixed[:3], convs[:3])):
+            k_ms = min(time_ms(lambda: kern(logits, cv, kc)) for _ in "ab")
+            p_ms = time_ms(lambda: plain(logits, cv, kc))
+            b_ms = bound(*pseudo_work([([fmt(x) for x in logits],)]))[0]
+            parts.append(f"{name} {what}: kernel {k_ms:.4f}, plain "
+                         f"{p_ms:.4f}, bound {b_ms:.4f}")
+    print(f"phase 3 time at the round's batch ({ROUND_BATCH} x {HW[0]}x"
+          f"{HW[1]}; ms): " + "; ".join(parts), flush=True)
+
+
 def print_tail_layout(gen):
     """The tail kernel's band width per scale (the main path's plane and
     the odd ones) and its blocks per SM at the main path's calls."""
@@ -652,7 +742,10 @@ def phase_kernels():
         _flat_outputs(eesp_branches.down_front_plain), front_calls, gen,
         1e-5, "down_front", rtol32=1e-5)
     err16["eesp_stage_fused_eval"], stage_rms = check_stage(gen)
-    err16["fused_pseudo_pass_pm"] = check_pm(gen)
+    pm_errs = check_pm(gen)
+    err16["fused_pseudo_pass_pm"] = pm_errs[torch.bfloat16]
+    mixed_err = {"fused_pseudo_cm": errs["mixed"],
+                 "fused_pseudo_pass_pm": pm_errs["mixed"]}
     print("phase 3 kernels vs plain at batch 8: fp32 within atol (pseudo "
           "passes 1e-5 and labels equal where decided, branches (with the "
           "train step's planes up to 128x240) and tail (with the train "
@@ -661,8 +754,13 @@ def phase_kernels():
           "1e-5, EESP stage 5e-4 + rtol 5e-4), bf16 within one bf16 "
           "rounding (EESP stage: units + 1 roundings of |want| and of the "
           f"rms; its outputs' rms up to {stage_rms:.4g}) | bf16 max |err| "
-          + ", ".join(f"{k} {v:.3g}" for k, v in err16.items()), flush=True)
+          + ", ".join(f"{k} {v:.3g}" for k, v in err16.items())
+          + " | mixed ensemble (3 bf16 sources + 1 f32 3-class model, "
+          f"batch {ROUND_BATCH}, every fusion and confidence; the fused pass "
+          "also at the odd shape) max |conf err| " + ", ".join(
+              f"{k} {v:.3g}" for k, v in mixed_err.items()), flush=True)
     print_tail_layout(gen)
+    print_mixed_times(gen)
 
     convs = [label_conversion_matrix(n) for n, _ in SOURCES]
     kc = torch.full((3,), KC, device="cuda")
@@ -671,7 +769,7 @@ def phase_kernels():
         return F.interpolate(x, size=size, mode="bilinear", align_corners=ac)
 
     table = [
-        ("fused_pseudo_cm", "mspl_tpu_torch/csrc/pseudo_cm.cu",
+        ("fused_pseudo_cm", "mspl_tpu_torch/csrc/pseudo_cm.cuh",
          "mspl_tpu/ops/pallas_pseudo_cm.py:184", pseudo_calls, pseudo_work,
          lambda lg: pseudo_cm.fused_pseudo_cm(lg, convs, kc),
          lambda lg: pseudo_cm.fused_pseudo_cm_plain(lg, convs, kc), None),
@@ -772,7 +870,25 @@ ROUTE_COUNTERS = {
 ALL_COUNTERS = {**COUNTERS, **ROUTE_COUNTERS}
 
 
+def _counts():
+    """Every kernel's launch count."""
+    return {k: fn.launches for k, fn in ALL_COUNTERS.items()}
+
+
 @contextlib.contextmanager
+def swapped(swaps):
+    """Set each (module, name, value) of `swaps` for the block, then put
+    every name back."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def plain_kernels():
     """Route the model and the engine through the plain versions by name."""
     import mspl_tpu_torch.layers.eesp as le
@@ -788,14 +904,7 @@ def plain_kernels():
               eesp_stage.eesp_stage_fused_eval_plain),
              (generate, "fused_pseudo_pass_pm",
               pseudo.fused_pseudo_pass_plain)]
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
-    for mod, name, fn in swaps:
-        setattr(mod, name, fn)
-    try:
-        yield
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
+    return swapped(swaps)
 
 
 def breakdown(gen, imgs_u8):
@@ -974,7 +1083,7 @@ def timed_sweep(sweep, n_batches: int, expect):
     labels, confs, hist, kc_next = sweep(BATCH * n_batches)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in ALL_COUNTERS.items()}
+    launches = _counts()
     for k, per in expect.items():
         if launches[k] != per * n_batches:
             raise AssertionError(f"{k}: {launches[k]} launches in "
@@ -1136,16 +1245,34 @@ def train_state(model, cw):
             make_train_step(model, class_weights=cw))
 
 
+def param_gaps(pa, pb, before):
+    """Per parameter: the largest gap between `pa` and `pb` past 2 ulps of
+    pb, relative to pb's largest update from `before`, floored at FLOOR of
+    the model's largest update."""
+    ups = {k: (pb[k] - before[k]).abs().max() for k in pb}
+    u_floor = FLOOR * max(ups.values())
+    return {k: ((pa[k] - pb[k]).abs() - 2.0 ** -22 * pb[k].abs()).clamp_min(
+        0).max() / torch.maximum(ups[k], u_floor) for k in pb}
+
+
+def update_gap(pa, pb, before) -> float:
+    """|pa - pb| / |pb - before| over every parameter together: how far
+    two fine-tunes' results lie apart, relative to how far the fine-tune
+    moved the model (f64 sums)."""
+    num = sum(((pa[k] - pb[k]).double() ** 2).sum() for k in pb)
+    den = sum(((pb[k] - before[k]).double() ** 2).sum() for k in pb)
+    return float((num / den).sqrt())
+
+
 def _step_gaps(sa, sb, model0):
     """The gaps of TRAIN_TOL between two train states after one step from
     `model0`, and the parameter where each gradient gap peaks."""
     pa, pb = (dict(st.model.named_parameters()) for st in (sa, sb))
     before = {k: v.cuda() for k, v in model0.named_parameters()}
     grads = {k: (pa[k].grad, pb[k].grad) for k in pb}
-    ups = {k: (pb[k] - before[k]).abs().max() for k in pb}
     g_floor = FLOOR * max(g.abs().max() for _, g in grads.values())
     g_norm = FLOOR * max(g.norm() for _, g in grads.values())
-    u_floor = FLOOR * max(ups.values())
+    p_gaps = param_gaps(pa, pb, before)
     gaps = {"loss": 0.0, "grad_norm": 0.0, "grad_elem": 0.0, "param": 0.0,
             "stats": 0.0}
     where = {}
@@ -1155,9 +1282,7 @@ def _step_gaps(sa, sb, model0):
                                                                g_norm)),
                 ("grad_elem", (ga - gb).abs().max() / torch.maximum(
                     gb.abs().max(), g_floor)),
-                ("param", ((pa[k] - pb[k]).abs() - 2.0 ** -22 * pb[k].abs()
-                           ).clamp_min(0).max() / torch.maximum(ups[k],
-                                                                u_floor))):
+                ("param", p_gaps[k])):
             if val.item() > gaps[key]:
                 gaps[key], where[key] = val.item(), k
     ba = dict(sa.model.named_buffers())
@@ -1321,7 +1446,7 @@ def phase_train(smi: str, profile_dir=None):
         losses.append(m["loss"])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in ALL_COUNTERS.items()}
+    launches = _counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     expect = {k: 40 if k == "pyr_branches" else 0 for k in ALL_COUNTERS}
     if launches != expect:
@@ -1391,6 +1516,301 @@ def phase_train(smi: str, profile_dir=None):
     return launches["pyr_branches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 7: one self-training round at full width
+# ---------------------------------------------------------------------------
+
+ROUND_TARGET, ROUND_VAL = 64, 16   # unlabeled target images, labeled val
+# SelfTrainConfig's defaults (SGD, poly lr 1e-3, kld 0.1, crop 256x480 at
+# scales 0.7-1.3, batch 8, labels on the device) but for the length
+ROUND_CFG = dict(rounds=2, epochs_per_round=1, verbose=False)
+ROUND_STEPS = -(-ROUND_TARGET // ROUND_BATCH)  # train steps a round
+ROUND_EVAL_BATCHES = -(-ROUND_VAL // ROUND_BATCH)
+KC_BIN = 1.0 / 1024  # a CBST histogram bin
+# share of round r's thresholded labels that must agree between the round
+# on the kernels and the same round on the plain versions (both with
+# cuDNN's deterministic algorithms); round 0 is generation only, round 1
+# follows one fine-tune on each side.  Held between plain runs whose
+# fine-tune alone takes another branch stack (`train_controls`): perturbed
+# by 1 ulp (must stay inside) and with one scale dropped (round 1 must go
+# beyond).  Set after the first run on an H100: the kernels 0.999956 and
+# 0.999951, the 1-ulp control 1.0 and 0.999995, one scale dropped 1.0 and
+# 0.899.  The labels cannot see a bf16-rounded fine-tune (round 1 read
+# 0.999957): the parameter gap below gates it.
+ROUND_AGREE = (0.999, 0.999)
+LABELS_SEE = ("one scale dropped",)  # controls round 1's labels must see
+# gap of the target model's parameters after round 0's fine-tune (8 steps)
+# between a run and the plain one, |a - b| / |b - start| over all of them
+# together (`update_gap`), held between the same controls: 1 ulp inside,
+# bf16-rounded and one scale dropped beyond.  Set on an H100 between the
+# sound runs' largest reading and the bf16 control's: kernels 0.00113,
+# default cuDNN 0.00136, 1 ulp 0.000917; bf16-rounded 0.0111, one scale
+# dropped 0.687.  After round 1 (16 steps, the labels differing) a
+# rounding has grown to 1% (1 ulp 0.0100, kernels 0.0107, bf16 0.0235),
+# so round 1's gap is printed, not gated.
+ROUND_PARAM_TOL = 4e-3
+
+
+class CachedSet:
+    """A dataset's samples made once and served from memory (`load` for
+    the pseudo-labeled set, `load_batch` for the loader)."""
+
+    def __init__(self, ds):
+        samples = [ds.load(i) for i in range(len(ds))]
+        self.images = np.stack([x for x, _ in samples])
+        self.labels = np.stack([y for _, y in samples])
+        self.num_classes, self.shape_hw = ds.num_classes, ds.shape_hw
+
+    def __len__(self):
+        return len(self.images)
+
+    def load(self, i):
+        return self.images[i], self.labels[i]
+
+    def load_batch(self, indices):
+        return self.images[indices], self.labels[indices]
+
+
+def round_probes(rec):
+    """Time what a round runs and catch its thresholded labels: the
+    generator's sweep, the kc sweep and re-threshold, the fine-tune (less
+    its evaluations) and the evaluations, each between two synchronizes,
+    into `rec["rounds"][r]`, with the launch counts at each round's start
+    and the labels as they enter the pseudo-labeled dataset."""
+    import mspl_tpu_torch.engine.train as et
+    import mspl_tpu_torch.pseudo.self_training as st
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            cur = rec["rounds"][-1]
+            cur[name] = cur.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    class Generator(st.PseudoLabelGenerator):
+        def __call__(self, loader, return_device=False):
+            rec["rounds"].append({"start": time.perf_counter(),
+                                  "launches": _counts(),
+                                  "n_models": len(self.sources)})
+            return timed("generate", super().__call__)(loader, return_device)
+
+    class Caught(st.PseudoLabeledDataset):
+        def __init__(self, base_ds, labels, indices):
+            rec["rounds"][-1]["labels"] = labels.astype(np.uint8)
+            super().__init__(base_ds, labels, indices)
+
+    train = timed("train", st.train_segmentation)
+
+    def tuned(model, *args, **kwargs):
+        out = train(model, *args, **kwargs)
+        rec["rounds"][-1]["params"] = {
+            k: v.detach().clone() for k, v in model.named_parameters()}
+        return out
+
+    swaps = [(st, "PseudoLabelGenerator", Generator),
+             (st, "sweep_kc", timed("kc", st.sweep_kc)),
+             (st, "apply_kc_device", timed("kc", st.apply_kc_device)),
+             (st, "PseudoLabeledDataset", Caught),
+             (st, "train_segmentation", tuned),
+             (et, "evaluate", timed("eval", et.evaluate))]
+    return swapped(swaps)
+
+
+def _train_only(fn):
+    """`fn` where autograd records (the fine-tune's forward), the plain
+    branch stack elsewhere (generation and evaluation run in inference
+    mode): a control that changes only what the fine-tune computes."""
+    plain = pyrpool.pyr_branches_plain
+    return lambda *a: fn(*a) if torch.is_grad_enabled() else plain(*a)
+
+
+def run_rounds(sources, target0, target_set, val_set, plain=False,
+               branch=None, deterministic=False):
+    """Two self-training rounds from `target0`'s weights on the card, the
+    launch counts set to 0 just before and read just after; on the plain
+    versions with `plain`, with `branch` for the branch stack (inside
+    `plain_kernels()`), with cuDNN's deterministic algorithms where asked.
+    Returns the probes' record with the history, the launches and the
+    seconds."""
+    import mspl_tpu_torch.layers.pyramid_pool as pp
+    import mspl_tpu_torch.pseudo.self_training as st
+
+    rec = {"rounds": []}
+    model = copy.deepcopy(target0)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        with (plain_kernels() if plain else contextlib.nullcontext()), \
+                round_probes(rec):
+            if branch is not None:
+                pp.pyr_branches = branch
+            for fn in ALL_COUNTERS.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            res = st.self_training(
+                model, None, sources, target_set,
+                DataLoader(val_set, batch_size=ROUND_BATCH), 3,
+                st.SelfTrainConfig(**ROUND_CFG), device="cuda")
+            torch.cuda.synchronize()
+            end = time.perf_counter()
+            rec["launches"] = _counts()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    rec["secs"] = end - t0
+    rec["history"] = res["history"]
+    starts = [r["start"] for r in rec["rounds"]] + [end]
+    marks = [r["launches"] for r in rec["rounds"]] + [rec["launches"]]
+    for i, r in enumerate(rec["rounds"]):
+        r["secs"] = starts[i + 1] - starts[i]
+        r["launches"] = {k: marks[i + 1][k] - marks[i][k] for k in marks[i]}
+    return rec
+
+
+def round_expected(n_models: int):
+    """Launches of one round: a batch of generation runs each model's three
+    branch stacks, tail and resize and one fused pass; a train step the
+    branch stack 4 times; an eval batch the 3-class model's 3, 1 and 1."""
+    n_gen = ROUND_TARGET // ROUND_BATCH
+    return {k: 0 for k in ALL_COUNTERS} | {
+        "fused_pseudo_cm": n_gen,
+        "pyr_branches": n_gen * 3 * n_models + 4 * ROUND_STEPS
+        + 3 * ROUND_EVAL_BATCHES,
+        "pyr_pool_fused_eval": n_gen * n_models + ROUND_EVAL_BATCHES,
+        "resize_x2_cm": n_gen * n_models + ROUND_EVAL_BATCHES}
+
+
+def check_round_run(rec, kernels: bool):
+    """Labels, history and launch counts of a two-round run (none on the
+    plain versions)."""
+    for r, (cur, h) in enumerate(zip(rec["rounds"], rec["history"])):
+        lab = cur["labels"]
+        if lab.shape != (ROUND_TARGET, *HW) or not set(
+                np.unique(lab).tolist()) <= {0, 1, 2, 255}:
+            raise AssertionError(f"round {r} labels {lab.shape} "
+                                 f"{np.unique(lab)[:8]}")
+        if h["n_sources"] != 3 + r or not 0.0 <= h["miou"] <= 1.0 or not \
+                0.0 < h["frac_kept"] <= 1.0:
+            raise AssertionError(f"round {r} history {h}")
+        want = (round_expected(h["n_sources"]) if kernels else
+                {k: 0 for k in ALL_COUNTERS})
+        if cur["launches"] != want:
+            raise AssertionError(f"round {r} launches {cur['launches']}, "
+                                 f"expected {want}")
+
+
+def _agreement(a, b, r):
+    return float((a["rounds"][r]["labels"] == b["rounds"][r]["labels"]
+                  ).mean())
+
+
+def _kc_gap(a, b, r):
+    return float(np.abs(np.subtract(a["history"][r]["kc"],
+                                    b["history"][r]["kc"])).max())
+
+
+def phase_round(smi: str, sources, profile_dir=None):
+    """Two full-width self-training rounds (phase 4's sources, an f32
+    3-class target model) on the kernels, timed and counted, and their gate
+    against the same rounds on the plain versions."""
+    from mspl_tpu_torch.data.datasets import SyntheticSegmentation
+
+    t_phase = time.perf_counter()
+    target0 = init_random(ESPNetv2Segmentation(TRAIN_CLASSES, s=2.0),
+                          torch.Generator().manual_seed(SEED + 3))
+    size_wh = (HW[1], HW[0])
+    target_set = CachedSet(SyntheticSegmentation(
+        TRAIN_CLASSES, size_wh, ROUND_TARGET, seed=SEED + 4, unlabeled=True))
+    val_set = CachedSet(SyntheticSegmentation(TRAIN_CLASSES, size_wh,
+                                              ROUND_VAL, seed=SEED + 5))
+    sets = (sources, target0, target_set, val_set)
+
+    # the gate first (it also warms the plans and allocator): the rounds on
+    # the kernels and on the plain versions, and the controls that change
+    # only the fine-tune's branch stack, all with deterministic cuDNN
+    det = run_rounds(*sets, deterministic=True)
+    ref = run_rounds(*sets, plain=True, deterministic=True)
+    controls = train_controls()
+    ctrl = {name: run_rounds(*sets, plain=True, deterministic=True,
+                             branch=_train_only(fn))
+            for name, fn, _ in controls}
+    timed = run_rounds(*sets)
+    for rec in (det, timed):
+        check_round_run(rec, kernels=True)
+    for rec in (ref, *ctrl.values()):
+        check_round_run(rec, kernels=False)
+
+    for r, cur in enumerate(timed["rounds"]):
+        h = timed["history"][r]
+        train_ms = (cur["train"] - cur["eval"]) / ROUND_STEPS
+        print(f"phase 7 round {r}: p {h['p']:.2f}, kc "
+              f"{[round(k, 4) for k in h['kc']]}, kept {h['frac_kept']:.4f}, "
+              f"{h['n_sources']} models ({cur['n_models']} in the fused pass),"
+              f" val mIoU {h['miou']:.4f} | generation {cur['generate']:.2f} "
+              f"ms ({ROUND_TARGET / cur['generate'] * 1e3:.2f} img/s), "
+              f"sweep_kc + apply_kc_device {cur['kc']:.2f} ms, train "
+              f"{train_ms:.2f} ms a step ({ROUND_BATCH / train_ms * 1e3:.2f} "
+              f"img/s, {ROUND_STEPS} steps), eval {cur['eval']:.2f} ms "
+              f"({ROUND_VAL} images), round {cur['secs']:.3f} s | launches "
+              f"fused_pseudo_cm {cur['launches']['fused_pseudo_cm']}, "
+              f"pyr_branches {cur['launches']['pyr_branches']}, "
+              f"pyr_pool_fused_eval "
+              f"{cur['launches']['pyr_pool_fused_eval']}, resize_x2_cm "
+              f"{cur['launches']['resize_x2_cm']} on {smi}", flush=True)
+    print(f"phase 7 two rounds: {timed['secs']:.3f} s of self_training "
+          f"(host clock; each round's times between synchronizes) | "
+          f"launches {json.dumps(timed['launches'])}", flush=True)
+
+    gaps = {"kernels": det, **ctrl, "timed (default cuDNN)": timed}
+    agree = {k: [_agreement(v, ref, r) for r in range(2)]
+             for k, v in gaps.items()}
+    kc_gap = {k: [_kc_gap(v, ref, r) for r in range(2)]
+              for k, v in gaps.items()}
+    before = {k: v.cuda() for k, v in target0.named_parameters()}
+    tuned = lambda v, r: v["rounds"][r]["params"]  # noqa: E731
+    p_gap = {k: [update_gap(tuned(v, r), tuned(ref, r), before)
+                 for r in range(2)] for k, v in gaps.items()}
+    p_elem = {k: [max(g.item() for g in param_gaps(
+        tuned(v, r), tuned(ref, r), before).values()) for r in range(2)]
+        for k, v in gaps.items()}
+    print("phase 7 gate: thresholded labels agreeing with the same rounds "
+          "on the plain versions (rounds 0, 1) and kc's largest gap: "
+          + "; ".join(f"{k} {a[0]:.6f}, {a[1]:.6f} (kc {kc_gap[k][0]:.4g}, "
+                      f"{kc_gap[k][1]:.4g})" for k, a in agree.items())
+          + f" | limits {ROUND_AGREE}, kc round 0 within {KC_BIN:.6g}",
+          flush=True)
+    print("phase 7 gate: the target model's parameters after round 0's "
+          "and round 1's fine-tune against the plain run's, |a - b| / "
+          "|b - start| over all of them (and phase 6's per-tensor gap, not "
+          "gated): " + "; ".join(
+              f"{k} {g[0]:.3g}, {g[1]:.3g} ({p_elem[k][0]:.3g}, "
+              f"{p_elem[k][1]:.3g})" for k, g in p_gap.items())
+          + f" | limit {ROUND_PARAM_TOL}", flush=True)
+    beyond = {name for name, _, seen in controls if seen}
+    faults = [f"{k} round {r} agreement {a[r]:.6f} < {ROUND_AGREE[r]}"
+              for k, a in agree.items() if k not in beyond
+              for r in range(2) if a[r] < ROUND_AGREE[r]]
+    faults += [f"the {k} fine-tune stays within round 1's limit "
+               f"({agree[k][1]:.6f})" for k in LABELS_SEE
+               if agree[k][1] >= ROUND_AGREE[1]]
+    faults += [f"{k} parameter gap {g[0]:.3g} {'<=' if k in beyond else '>'}"
+               f" {ROUND_PARAM_TOL}" for k, g in p_gap.items()
+               if (g[0] > ROUND_PARAM_TOL) != (k in beyond)]
+    faults += [f"{k} round 0 kc gap {g[0]:.4g}" for k, g in kc_gap.items()
+               if g[0] > KC_BIN]
+    if faults:
+        raise AssertionError("phase 7 gate: " + "; ".join(faults))
+    if profile_dir:
+        profile_sweep(lambda n: run_rounds(*sets), ROUND_TARGET,
+                      os.path.join(profile_dir, "round"),
+                      "phase 7 two rounds")
+    print(f"phase 7 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return timed["launches"]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batches", type=int, default=8,
@@ -1408,10 +1828,13 @@ def main():
         args.batches, smi, args.profile)
     launches.update(phase_routes(args.batches, smi, gen, pool, lab_default,
                                  args.profile))
+    sources = gen.sources
     del gen, pool
     train_launches = phase_train(smi, args.profile)
+    round_launches = phase_round(smi, sources, args.profile)
     for r in rows:
         r["launches"] = launches[r["name"]]
+        r["round_launches"] = round_launches[r["name"]]
         if r["name"] == "pyr_branches":
             r["train_launches"] = train_launches
     print(json.dumps({"kernels": rows}), flush=True)

@@ -10,8 +10,9 @@ version, which CPU tensors take.
 
 Entry points run on the card unless the caller passes `device="cpu"`:
 `pseudo.generate.make_source`, `PseudoLabelGenerator`,
-`generate_pseudo_labels`, and `engine.train.create_train_state`,
-`make_train_step` and `make_eval_step`, which move the model there.
+`generate_pseudo_labels`, `engine.train.create_train_state`,
+`make_train_step`, `make_eval_step` and `train_segmentation`, and
+`pseudo.self_training.self_training`, which move the model there.
 """
 
 __all__ = ["data", "engine", "layers", "models", "ops", "pseudo", "utils"]

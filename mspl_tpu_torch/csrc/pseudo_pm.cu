@@ -29,6 +29,10 @@
 // in a trial on the H100; see PERF.md for the kernel's time in the route).
 // The arguments are __grid_constant__, so the per-model pointers and widths
 // indexed at run time are read in place, not copied to local memory.
+// Each model's logits are f32 or bf16 on their own, as the JAX kernel
+// casts each model's block to f32 (a self-training round ensembles bf16
+// sources with an f32 target model): a bit per model says which, and the
+// model loop, uniform across the grid, takes that model's load.
 #include "common.cuh"
 
 #define MAX_MODELS 4
@@ -39,6 +43,7 @@ struct PmArgs {
   const void* logits[MAX_MODELS];
   int c[MAX_MODELS];
   int n_models;
+  int bf16;        // bit m set: model m's logits are bf16, else f32
   int t;           // target classes T; the tables have T+1 columns
   int64_t total;   // B*H*W
   int min_agree;
@@ -88,7 +93,19 @@ __device__ __forceinline__ void model_probs(const T* __restrict__ row, int cm,
   }
 }
 
-template <typename T, bool HARD, bool ENTROPY>
+// One model's q at pixel p: its row read as T, its register width 8, 16
+// or 32.
+template <typename T>
+__device__ __forceinline__ void model_at(const void* logits, int64_t p,
+                                         int cm, const float* tab, int t1,
+                                         float q[MAX_T1]) {
+  const T* row = reinterpret_cast<const T*>(logits) + p * cm;
+  if (cm <= 8) model_probs<8>(row, cm, tab, t1, q);
+  else if (cm <= 16) model_probs<16>(row, cm, tab, t1, q);
+  else model_probs<MAX_C>(row, cm, tab, t1, q);
+}
+
+template <bool HARD, bool ENTROPY>
 __global__ void __launch_bounds__(256)
 pseudo_pm_kernel(const __grid_constant__ PmArgs a) {
   __shared__ float s_tab[MAX_MODELS * MAX_C * MAX_T1];
@@ -108,11 +125,11 @@ pseudo_pm_kernel(const __grid_constant__ PmArgs a) {
   int toff = 0;
   for (int m = 0; m < a.n_models; ++m) {
     const int cm = a.c[m];
-    const T* row = reinterpret_cast<const T*>(a.logits[m]) + p * cm;
     float q[MAX_T1];
-    if (cm <= 8) model_probs<8>(row, cm, s_tab + toff, t1, q);
-    else if (cm <= 16) model_probs<16>(row, cm, s_tab + toff, t1, q);
-    else model_probs<MAX_C>(row, cm, s_tab + toff, t1, q);
+    if ((a.bf16 >> m) & 1)
+      model_at<__nv_bfloat16>(a.logits[m], p, cm, s_tab + toff, t1, q);
+    else
+      model_at<float>(a.logits[m], p, cm, s_tab + toff, t1, q);
     if (HARD) {
       float best = q[0];
       int lab = 0;
@@ -174,22 +191,22 @@ pseudo_pm_kernel(const __grid_constant__ PmArgs a) {
   a.out_conf[p] = conf;
 }
 
-template <typename T>
-static void launch_typed(const PmArgs& a, int hard, int entropy,
-                         cudaStream_t st) {
+static void launch(const PmArgs& a, int hard, int entropy, cudaStream_t st) {
   const unsigned int grid = mspl_blocks(a.total, 256);
-  if (hard && entropy) pseudo_pm_kernel<T, true, true><<<grid, 256, 0, st>>>(a);
-  else if (hard) pseudo_pm_kernel<T, true, false><<<grid, 256, 0, st>>>(a);
-  else if (entropy) pseudo_pm_kernel<T, false, true><<<grid, 256, 0, st>>>(a);
-  else pseudo_pm_kernel<T, false, false><<<grid, 256, 0, st>>>(a);
+  if (hard && entropy) pseudo_pm_kernel<true, true><<<grid, 256, 0, st>>>(a);
+  else if (hard) pseudo_pm_kernel<true, false><<<grid, 256, 0, st>>>(a);
+  else if (entropy) pseudo_pm_kernel<false, true><<<grid, 256, 0, st>>>(a);
+  else pseudo_pm_kernel<false, false><<<grid, 256, 0, st>>>(a);
 }
 
+// logits l0..l3 [B, H, W, C_m] (n_models of them; bit m of bf16_mask set:
+// model m's are bf16, else f32), c0..c3 their channels.
 extern "C" int pseudo_pm_launch(
     const void* l0, const void* l1, const void* l2, const void* l3,
     int c0, int c1, int c2, int c3, int n_models, const float* tables,
-    const float* kc, int has_kc, int t, long long total, int dtype, int hard,
-    int entropy, int min_agree, int ignore, float inv_log, void* out_label,
-    void* out_conf, void* stream) {
+    const float* kc, int has_kc, int t, long long total, int bf16_mask,
+    int hard, int entropy, int min_agree, int ignore, float inv_log,
+    void* out_label, void* out_conf, void* stream) {
   PmArgs a;
   const void* ls[MAX_MODELS] = {l0, l1, l2, l3};
   const int cs[MAX_MODELS] = {c0, c1, c2, c3};
@@ -198,6 +215,7 @@ extern "C" int pseudo_pm_launch(
     a.c[m] = cs[m];
   }
   a.n_models = n_models;
+  a.bf16 = bf16_mask;
   a.t = t;
   a.total = total;
   a.min_agree = min_agree;
@@ -209,9 +227,6 @@ extern "C" int pseudo_pm_launch(
   a.out_label = reinterpret_cast<int32_t*>(out_label);
   a.out_conf = reinterpret_cast<float*>(out_conf);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (total > 0) {
-    if (dtype == MSPL_BF16) launch_typed<__nv_bfloat16>(a, hard, entropy, st);
-    else launch_typed<float>(a, hard, entropy, st);
-  }
+  if (total > 0) launch(a, hard, entropy, st);
   return (int)cudaGetLastError();
 }

@@ -5,8 +5,9 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled with
 under `mspl_tpu_torch/_build/`, then loaded with ctypes.  Nothing is built
 when a module is imported: the first launch builds what it needs, and
 `build_all()` compiles every source at once, one nvcc process per source
-running in parallel.  A library's file name carries a hash of its sources
-and flags, so an edited kernel is rebuilt and a stale one never loads.
+running in parallel.  A library's file name carries a hash of its source,
+the headers it includes and the flags, so an edited kernel is rebuilt and
+a stale one never loads, and a header's edit rebuilds only its includers.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -25,8 +27,8 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("pseudo_cm", "pyrpool", "resize_x2", "eesp_branches", "eesp_stage",
-           "pseudo_pm")
+SOURCES = ("pseudo_cm", "pseudo_cm_mixed", "pyrpool", "resize_x2",
+           "eesp_branches", "eesp_stage", "pseudo_pm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,9 +47,22 @@ def _nvcc() -> str:
     return found
 
 
+def _inputs(name: str):
+    """`csrc/<name>.cu` and every csrc header it includes, directly or
+    through another header."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path not in seen:
+            seen.append(path)
+            todo += [CSRC / inc for inc in
+                     re.findall(r'#include "(\w+\.cuh)"', path.read_text())]
+    return seen
+
+
 def lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for src in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for src in _inputs(name):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"lib{name}_{h.hexdigest()[:12]}.so"

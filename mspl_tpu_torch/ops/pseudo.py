@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from mspl_tpu_torch.ops import _cuda
-from mspl_tpu_torch.ops.pseudo_cm import MAX_C, MAX_MODELS, MAX_T1, _tables
+from mspl_tpu_torch.ops.pseudo_cm import (MAX_C, MAX_MODELS, MAX_T1,
+                                          _tables, bf16_mask)
 from mspl_tpu_torch.utils.registry import IGNORE_LABEL
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -127,7 +128,8 @@ def fused_pseudo_pass_pm(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused pseudo-label pass (soft or hard) on contiguous NHWC logits.
 
-    logits_list: N tensors [B, H, W, C_m] (f32 or bf16, one dtype);
+    logits_list: N tensors [B, H, W, C_m], each f32 or bf16 on its own
+    (read in its own dtype, as by the JAX kernel);
     conversions: N numpy [C_m, T+1] tables; kc: [T] thresholds or None.
     Returns (label int32 [B,H,W], conf f32 [B,H,W]).  CPU tensors take the
     plain version; CUDA tensors launch the kernel."""
@@ -146,7 +148,7 @@ def fused_pseudo_pass_pm(
     x0 = logits_list[0]
     shape = tuple(x0.shape[:3])
     for i, (x, c) in enumerate(zip(logits_list, convs)):
-        _cuda.require(x, f"logits[{i}]", (x0.dtype,) if i else _DTYPES)
+        _cuda.require(x, f"logits[{i}]", _DTYPES)
         if (x.dim() != 4 or tuple(x.shape[:3]) != shape
                 or x.device != x0.device):
             raise ValueError(f"logits {tuple(x.shape)} do not match "
@@ -171,7 +173,7 @@ def fused_pseudo_pass_pm(
     err = lib.pseudo_pm_launch(
         *ptrs, *cs, n, _cuda.ptr(tables),
         None if kc_t is None else _cuda.ptr(kc_t), int(kc_t is not None), n_t,
-        label.numel(), 1 if x0.dtype == torch.bfloat16 else 0,
+        label.numel(), bf16_mask(logits_list),
         int(mode == "hard"), int(conf_mode == "entropy"), int(need),
         ignore_label, 1.0 / math.log(n_t + 1), _cuda.ptr(label),
         _cuda.ptr(conf), _cuda.stream(x0))

@@ -1,5 +1,5 @@
 """Fused pseudo-label pass over channel-major logits: the CUDA kernel
-`csrc/pseudo_cm.cu` and its plain PyTorch version.
+`csrc/pseudo_cm.cuh` and its plain PyTorch version.
 
 Replaces mspl_tpu/ops/pallas_pseudo_cm.py::fused_pseudo_cm (and its entry
 point fused_pseudo_soft_cm).  Per pixel over N logit stacks [B, C_m, H, W]:
@@ -9,8 +9,11 @@ argmax and confidence, then `conf >= kc[label]` else ignore.  With
 (an entropy confidence that rounds below 0 is set to ignore).
 
 Bound on the card: bytes (every logit read once, 8 bytes written per
-pixel); see the source note in csrc/pseudo_cm.cu for the design and
-`launch_plan` for what the wrapper decides per call.
+pixel); see the source note in csrc/pseudo_cm.cuh for the design and
+`launch_plan` for what the wrapper decides per call.  The kernel is built
+as two libraries: `pseudo_cm.cu` holds the single-dtype instances (all
+models f32 or all bf16), `pseudo_cm_mixed.cu` the instances that read
+each model in its own dtype.
 
 Kernel limits, which the reference does not have (the plain version has
 none; on the card the wrapper raises): at most MAX_MODELS = 4 models,
@@ -35,7 +38,7 @@ from mspl_tpu_torch.ops import _cuda
 from mspl_tpu_torch.utils.registry import IGNORE_LABEL
 
 MAX_MODELS, MAX_C, MAX_T1 = 4, 32, 8
-PIXELS_PER_THREAD = 4  # csrc/pseudo_cm.cu VP: one 8- or 16-byte load
+PIXELS_PER_THREAD = 4  # csrc/pseudo_cm.cuh VP: one 8- or 16-byte load
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -50,6 +53,13 @@ def launch_plan(channels: Sequence[int], n_t: int, hw: int,
     widths = tuple(-(-c // 4) * 4 for c in channels)
     t1 = 4 if n_t + 1 <= 4 else MAX_T1
     return widths, t1, aligned and hw % PIXELS_PER_THREAD == 0
+
+
+def bf16_mask(logits: Sequence[torch.Tensor]) -> int:
+    """The kernels' per-model dtype word: bit m set where model m's
+    logits are bf16 (else f32)."""
+    return sum(1 << m for m, x in enumerate(logits)
+               if x.dtype == torch.bfloat16)
 
 
 def _check_args(logits_cm, conversions, mode, conf_mode):
@@ -166,7 +176,9 @@ def fused_pseudo_cm(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused pseudo-label pass (soft or hard) on channel-major logits.
 
-    logits_cm: N tensors [B, C_m, H, W] (f32 or bf16, one dtype);
+    logits_cm: N tensors [B, C_m, H, W], each f32 or bf16 on its own (a
+    self-training round's ensemble mixes bf16 sources with an f32 target
+    model; each is read in its own dtype, as by the JAX kernel);
     conversions: N numpy [C_m, T+1] tables; kc: [T] thresholds or None.
     Returns (label int32 [B,H,W], conf f32 [B,H,W]).  CPU tensors take
     the plain version; CUDA tensors launch the kernel."""
@@ -180,10 +192,8 @@ def fused_pseudo_cm(
         raise ValueError(f"kernel limits: <= {MAX_MODELS} models, <= {MAX_C} "
                          f"source classes, <= {MAX_T1 - 1} target classes")
     x0 = logits_cm[0]
-    if x0.dtype not in _DTYPES:
-        raise TypeError(f"logits dtype {x0.dtype} not in {_DTYPES}")
     for i, x in enumerate(logits_cm):
-        _cuda.require(x, f"logits[{i}]", (x0.dtype,))
+        _cuda.require(x, f"logits[{i}]", _DTYPES)
         if x.device != x0.device:
             raise ValueError("all logits must lie on one device")
     b, _, h, w = x0.shape
@@ -201,15 +211,15 @@ def fused_pseudo_cm(
     widths, t1, vec = launch_plan(cs, n_t, h * w, aligned)
     pad = [0] * (MAX_MODELS - n)
     ptrs = [_cuda.ptr(x) for x in logits_cm] + [None] * len(pad)
-    lib = _lib()
-    err = lib.pseudo_cm_launch(
+    mask = bf16_mask(logits_cm)
+    lib, launch = _lib(mixed=0 < mask < (1 << n) - 1)
+    err = launch(
         *ptrs, *(cs + pad), *(list(widths) + pad), n, _cuda.ptr(tables),
-        _cuda.ptr(kc_t), n_t, h * w, b,
-        1 if x0.dtype == torch.bfloat16 else 0, int(mode == "hard"),
+        _cuda.ptr(kc_t), n_t, h * w, b, mask, int(mode == "hard"),
         int(conf_mode == "entropy"), float(need), ignore_label,
         1.0 / math.log(n_t + 1), t1, int(vec), _cuda.ptr(label),
         _cuda.ptr(conf), _cuda.stream(x0))
-    _cuda.check(lib, err, "pseudo_cm_launch")
+    _cuda.check(lib, err, launch.__name__)
     fused_pseudo_cm.launches += 1
     return label, conf
 
@@ -217,12 +227,16 @@ def fused_pseudo_cm(
 fused_pseudo_cm.launches = 0
 
 
-def _lib():
-    lib = _cuda.load("pseudo_cm")
-    fn = lib.pseudo_cm_launch
+def _lib(mixed: bool):
+    """(library, launch entry) of the single-dtype kernels, or of the mixed
+    ones (`csrc/pseudo_cm_mixed.cu`: the instances that read f32 and bf16
+    models in one launch)."""
+    name = "pseudo_cm_mixed" if mixed else "pseudo_cm"
+    lib = _cuda.load(name)
+    fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        # logits, channels, widths, N, tables, kc, T, H*W, B, dtype, hard,
+        # logits, channels, widths, N, tables, kc, T, H*W, B, bf16 mask, hard,
         # entropy, min_agree, ignore, 1/ln(T+1), T1 instance, vec, label,
         # conf, stream
         fn.argtypes = ([vp] * 4 + [ci] * 9 + [vp, vp, ci, ctypes.c_longlong,
@@ -231,4 +245,4 @@ def _lib():
                                                ctypes.c_float, ci, ci, vp,
                                                vp, vp])
         fn.restype = ci
-    return lib
+    return lib, fn

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from collections import OrderedDict
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -53,7 +54,30 @@ BAND_KS = (3, 4, 6)  # the tail kernel's band widths (template K)
 TAIL_SMEM_FLOATS = (228 * 1024 // 2 - 1024) // 4
 _DTYPES = (torch.float32, torch.bfloat16)
 _KIND_ID, _KIND_UP, _KIND_DOWN = 0, 1, 2
-_plan_cache: Dict[tuple, tuple] = {}
+# the plans each kind ("down", "branch", "record", "tail") keeps, keyed by
+# call shape and device, the least recently used dropped past
+# PLAN_CACHE_SIZE: each new plane shape (a new crop size in training, say)
+# adds an entry
+PLAN_CACHE_SIZE = 32
+_plan_cache: Dict[str, "OrderedDict[tuple, tuple]"] = {}
+
+
+def _cached(kind: str, key: tuple):
+    """The `kind` plan of `key`, or None; a hit becomes the most recent."""
+    lru = _plan_cache.setdefault(kind, OrderedDict())
+    hit = lru.get(key)
+    if hit is not None:
+        lru.move_to_end(key)
+    return hit
+
+
+def _keep(kind: str, key: tuple, plan: tuple) -> tuple:
+    """Cache `plan` as the most recent of its kind; returns it."""
+    lru = _plan_cache.setdefault(kind, OrderedDict())
+    lru[key] = plan
+    while len(lru) > PLAN_CACHE_SIZE:
+        lru.popitem(last=False)
+    return plan
 
 
 def branch_sizes(h: int, w: int,
@@ -136,7 +160,7 @@ def _down_plan(h: int, w: int, scales: Tuple[float, ...], device):
     bins then its column bins, (index, weight) pairs) on the device; cached
     per shape."""
     key = (h, w, scales, str(device))
-    hit = _plan_cache.get(key)
+    hit = _cached("down", key)
     if hit is not None:
         return hit
     kinds, idx, wgt = [], [], []
@@ -151,8 +175,7 @@ def _down_plan(h: int, w: int, scales: Tuple[float, ...], device):
     itab = torch.from_numpy(np.concatenate(idx or [np.zeros(1, np.int32)]))
     ftab = torch.from_numpy(np.concatenate(wgt or [np.zeros(1, np.float32)]))
     hit = (kinds, sizes, itab.to(device), ftab.to(device))
-    _plan_cache[key] = hit
-    return hit
+    return _keep("down", key, hit)
 
 
 def _shift_op(n: int, e: int) -> np.ndarray:
@@ -288,7 +311,7 @@ def _branch_plan(h: int, w: int, scales: Tuple[float, ...], device):
     overhang past the last column).  Returns (lay, ints, floats, rb, nsub,
     rsub, x_rows)."""
     key = ("branch", h, w, scales, str(device))
-    hit = _plan_cache.get(key)
+    hit = _cached("branch", key)
     if hit is not None:
         return hit
     lay, ints, floats, bands = [], [], [], []
@@ -334,8 +357,7 @@ def _branch_plan(h: int, w: int, scales: Tuple[float, ...], device):
     hit = (lay, torch.from_numpy(np.concatenate(ints).astype(np.int32)).to(
         device), torch.from_numpy(np.concatenate(floats).astype(
             np.float32)).to(device), rb, nsub, rsub, x_rows)
-    _plan_cache[key] = hit
-    return hit
+    return _keep("branch", key, hit)
 
 
 def _branch_record(b: int, p: int, h: int, w: int,
@@ -345,7 +367,7 @@ def _branch_record(b: int, p: int, h: int, w: int,
     pyr_branches_launch reads and the table pointers.  Returns (record
     address, tables address, the ctypes arrays that own both)."""
     key = ("record", b, p, h, w, scales, dtype, str(device))
-    hit = _plan_cache.get(key)
+    hit = _cached("record", key)
     if hit is not None:
         return hit
     kinds, sizes, itab, ftab = _down_plan(h, w, scales, device)
@@ -360,9 +382,11 @@ def _branch_record(b: int, p: int, h: int, w: int,
     cfg = (ctypes.c_int * len(cfg))(*cfg)
     tabs = (ctypes.c_void_p * 4)(*[t.data_ptr() for t in (itab, ftab, bt_i,
                                                            bt_f)])
-    hit = (ctypes.addressof(cfg), ctypes.addressof(tabs), (cfg, tabs))
-    _plan_cache[key] = hit
-    return hit
+    # the record owns the tables it points at: a plan of another kind may
+    # leave its cache first
+    hit = (ctypes.addressof(cfg), ctypes.addressof(tabs),
+           (cfg, tabs, itab, ftab, bt_i, bt_f))
+    return _keep("record", key, hit)
 
 
 def _tail_plan(h: int, w: int, scales: Tuple[float, ...], device):
@@ -379,7 +403,7 @@ def _tail_plan(h: int, w: int, scales: Tuple[float, ...], device):
     int tables [tiles, tile_i], x_cap, d_cap: the floats of one channel's
     x region and of a down scale's region)."""
     key = ("tail", h, w, scales, str(device))
-    hit = _plan_cache.get(key)
+    hit = _cached("tail", key)
     if hit is not None:
         return hit
     th, tw = TAIL_TILE
@@ -426,8 +450,7 @@ def _tail_plan(h: int, w: int, scales: Tuple[float, ...], device):
     tab_f, tab_i = np.stack(tab_f), np.stack(tab_i)
     hit = (ks, torch.from_numpy(tab_f).to(device),
            torch.from_numpy(tab_i).to(device), x_cap, d_cap)
-    _plan_cache[key] = hit
-    return hit
+    return _keep("tail", key, hit)
 
 
 def _group(p: int, per_ch: int, budget: int) -> int:

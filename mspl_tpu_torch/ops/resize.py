@@ -84,8 +84,11 @@ def adaptive_bins(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
 def _device_matrix(build, args: tuple, device: torch.device,
                    dtype: torch.dtype) -> torch.Tensor:
     # one upload per operator and device: a host-to-device copy from
-    # pageable memory waits for the stream, which would stall the forward
-    return torch.from_numpy(build(*args)).to(device=device, dtype=dtype)
+    # pageable memory waits for the stream, which would stall the forward.
+    # Made outside inference mode whatever the caller's mode: an eval
+    # forward may fill the cache and a train step's backward then saves it
+    with torch.inference_mode(False):
+        return torch.from_numpy(build(*args)).to(device=device, dtype=dtype)
 
 
 def _mm(eq: str, build, args: tuple, x: torch.Tensor) -> torch.Tensor:

@@ -63,3 +63,30 @@ def kc_from_histograms(hist, p: float, max_kc: float = 0.999) -> np.ndarray:
     kc = idx.astype(np.float64) / bins  # lower edge of the bin
     kc = np.where(totals > 0, kc, 0.0)
     return np.minimum(kc, max_kc).astype(np.float32)
+
+
+def apply_kc_device(labels, confs, kc, ignore_label: int = IGNORE_LABEL
+                    ) -> torch.Tensor:
+    """Re-threshold a whole label/confidence set with per-class kc (the
+    CBST keep rule): pixels with conf < kc[label] become `ignore_label`.
+    One compare and select on the labels' device; the output keeps the
+    labels' dtype (uint8 from the on-device generation path).  A label
+    outside [0, len(kc)) other than `ignore_label` reads the nearest kc, as
+    the reference's clamped gather does."""
+    labels = torch.as_tensor(labels)
+    confs = torch.as_tensor(confs).to(labels.device)
+    kc_t = torch.as_tensor(np.asarray(kc, np.float32), device=labels.device)
+    safe = torch.where(labels == ignore_label, 0, labels).to(torch.int64)
+    thr = kc_t[safe.clamp(0, kc_t.numel() - 1)]
+    return torch.where(confs >= thr, labels,
+                       torch.full_like(labels, ignore_label))
+
+
+def sweep_kc(labels, confs, num_classes: int, p: float,
+             num_bins: int = DEFAULT_BINS) -> np.ndarray:
+    """Histogram a full label/confidence set on its device and return kc
+    (numpy float32 [num_classes])."""
+    hist = class_confidence_histograms(torch.as_tensor(labels),
+                                       torch.as_tensor(confs), num_classes,
+                                       num_bins)
+    return kc_from_histograms(hist, p)

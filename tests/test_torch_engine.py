@@ -248,8 +248,9 @@ def test_unknown_names_raise():
     with pytest.raises(ValueError, match="optimizer"):
         build_optimizer("lamb", [torch.zeros(1, requires_grad=True)],
                         lambda s: 0.1)
-    with pytest.raises(NotImplementedError, match="train_transform"):
-        make_train_step(torch.nn.Linear(1, 1), augment=True)
+    # augmentation is in (the self-training slice); it needs a crop size
+    with pytest.raises(ValueError, match="crop_hw"):
+        make_train_step(torch.nn.Linear(1, 1), augment=True, device="cpu")
 
 
 @pytest.mark.parametrize("entry", ["state", "train_step", "eval_step"])

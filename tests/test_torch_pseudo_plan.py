@@ -1,5 +1,5 @@
 """The launch plan of the fused pseudo-label kernel (kernel 1 of the port,
-`csrc/pseudo_cm.cu`) on the CPU.
+`csrc/pseudo_cm.cuh`) on the CPU.
 
 The kernel reads 4 pixels of a plane a thread, each model's channels in a
 register width rounded up to 4 (loads past C_m repeat the last plane and
