@@ -13,6 +13,11 @@ number and have no counterpart.
 
 Both the kernel and the plain version round the proj output and the unit
 output to the working dtype and keep everything between in f32.  The
+kernel computes the two 1x1 products on the tensor cores as split bf16
+(each operand a as hi = bf16(a) plus lo = bf16(a - hi), products hi.hi +
+lo.hi + hi.lo accumulated in f32), which keeps that f32 contract; the
+weights' hi and lo are packed once per unit by `_pack`, and `_tiling`
+models the kernel's shared memory.  The
 per-unit arrays are cached on the unit and rebuilt when any of its
 parameters or statistics changes (the cache is keyed on each tensor's
 storage and `_version`, which in-place loads such as `load_flax_variables`
@@ -22,8 +27,9 @@ and `load_state_dict` bump).
 from __future__ import annotations
 
 import ctypes
+import functools
 import itertools
-from typing import Dict, List, Sequence
+from typing import Dict, List, NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -131,35 +137,111 @@ def eesp_stage_fused_eval_plain(x: torch.Tensor, blocks: List[Dict],
     return x
 
 
-def _tiling(h: int, w: int, n: int, c: int, dmax: int, itemsize: int):
-    """(rows per block, halo-band pixels per channel, pixels per chunk) of
-    the kernel: the fewest row bands whose staged proj output and a chunk of
-    at least 16 pixels fit a block's shared memory (csrc/eesp_stage.cu)."""
+# shared memory of a block: [z hi | z lo] bf16 [zrows, pc + LD_PAD] | one
+# 16x16 f32 scratch tile a warp (16 warps) | y [n, cap] in the working dtype
+LD_PAD = 8
+SCRATCH_BYTES = 16 * 16 * 16 * 4
+
+
+class Tiling(NamedTuple):
+    th: int      # output rows a block
+    cap: int     # halo-band pixels a channel of the staged proj output y
+    pc: int      # output pixels a chunk (a multiple of 16)
+    pp: int      # halo-band pixels a proj window (a multiple of 16)
+    zrows: int   # rows of the staged product operands
+    smem: int    # dynamic shared memory bytes a block
+
+
+def _pad16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def _products(c: int, n: int, k: int, g_proj: int, grouped: bool):
+    """(groups, rows, cols) of the two products' padded A operands: proj
+    g_proj x [pad16(n/g), pad16(C/g)], expand K x [pad16(n), pad16(n)]
+    (grouped) or 1 x [pad16(C), pad16(C)] (dense)."""
+    proj = (g_proj, _pad16(n // g_proj), _pad16(c // g_proj))
+    exp = (k, _pad16(n), _pad16(n)) if grouped else (1, _pad16(c), _pad16(c))
+    return proj, exp
+
+
+def _smem_bytes(zrows: int, pc: int, n: int, cap: int, itemsize: int) -> int:
+    """The dynamic shared memory a launch asks for (csrc/eesp_stage.cu)."""
+    return zrows * (pc + LD_PAD) * 4 + SCRATCH_BYTES + n * cap * itemsize
+
+
+@functools.lru_cache(maxsize=None)
+def _tiling(h: int, w: int, n: int, c: int, k: int, dmax: int,
+            itemsize: int, g_proj: int, grouped: bool) -> Tiling:
+    """The kernel's tiling: the fewest row bands whose staged proj output y
+    and a chunk of at least 16 pixels fit a block's shared memory, the
+    widest chunk (up to 128 pixels) beside them, and the widest proj window
+    whose staged input (bf16 hi, and lo for f32) fits the chunk's z region."""
+    proj, exp = _products(c, n, k, g_proj, grouped)
+    prows = proj[0] * proj[2]
+    zrows = max(prows, exp[0] * exp[2])
+    split = 2 if itemsize == 4 else 1
     for bands in range(1, h + 1):
         th = -(-h // bands)
         rows = max(min(h, r0 + th + dmax) - max(0, r0 - dmax)
                    for r0 in range(0, h, th))
         cap = rows * w
-        pc = min(128, (SMEM_BYTES - n * cap * itemsize) // (c * 4) // 4 * 4)
+        free = SMEM_BYTES - _smem_bytes(zrows, 0, n, cap, itemsize)
+        pc = min(128, free // (zrows * 4) // 16 * 16)
         if pc >= 16:
-            return th, cap, pc
+            zbytes = zrows * (pc + LD_PAD) * 4
+            pp = (zbytes // (prows * 2 * split) - LD_PAD) // 16 * 16
+            return Tiling(th, cap, pc, min(pp, _pad16(cap)), zrows,
+                          _smem_bytes(zrows, pc, n, cap, itemsize))
     raise ValueError(f"no tiling of a {h}x{w} plane with n={n}, C={c} fits "
                      "shared memory")
 
 
-def _flat(blk, device) -> torch.Tensor:
-    """The kernel's packed f32 parameters of one unit, kept in `blk`."""
-    hit = blk.get("_flat")
-    if hit is not None and hit.device == device:
+def _operands(blk) -> List[torch.Tensor]:
+    """The two products' A operands in f32, output-major and zero-padded
+    to 16x16 tiles per group (`_products`): proj [g_proj, n/g, C/g] from
+    the diagonal blocks of pw, expand ew transposed."""
+    pw = blk["pw"].float()
+    g = int(blk.get("g_proj", 1))
+    ci, co = pw.shape[0] // g, pw.shape[1] // g
+    proj = torch.stack([pw[i * ci:(i + 1) * ci, i * co:(i + 1) * co].t()
+                        for i in range(g)])
+    ew = blk["ew"].float()
+    exp = ew.transpose(1, 2) if ew.dim() == 3 else ew.t()[None]
+    return [F.pad(a, (0, _pad16(a.shape[2]) - a.shape[2],
+                      0, _pad16(a.shape[1]) - a.shape[1]))
+            for a in (proj, exp)]
+
+
+def _split(a: torch.Tensor):
+    """f32 -> bf16 (hi, lo) with hi + lo = a within 2^-16 relative."""
+    hi = a.to(torch.bfloat16)
+    return hi, (a - hi.float()).to(torch.bfloat16)
+
+
+def _pack(blk, device) -> Dict:
+    """The kernel's packed parameters of one unit, kept in `blk`: "f32",
+    [pb | pa | taps | ca | cb | cal | eb | alpha]; "mma", bf16 [proj hi |
+    proj lo | expand hi | expand lo] of `_operands`; "blocks", each mma
+    block's (name, offset, shape), every offset a multiple of 16 elements
+    (32 bytes, as the tensor cores' loads need)."""
+    hit = blk.get("_packed")
+    if hit is not None and hit["f32"].device == device:
         return hit
     cat = blk["cataff"]
     cat = cat.permute(1, 0, 2).reshape(3, -1) if _grouped(blk) else cat[0]
-    parts = [blk["pw"], blk["paff"], blk["taps"], cat, blk["ew"],
-             blk["eaff"], blk["alpha"]]
-    flat = torch.cat([t.reshape(-1).to(device=device, dtype=torch.float32)
-                      for t in parts])
-    blk["_flat"] = flat
-    return flat
+    f32 = torch.cat([t.reshape(-1).to(device=device, dtype=torch.float32)
+                     for t in (blk["paff"], blk["taps"], cat, blk["eaff"],
+                               blk["alpha"])])
+    parts, blocks, off = [], [], 0
+    for name, a in zip(("proj", "expand"), _operands(blk)):
+        for half, t in zip(("hi", "lo"), _split(a.to(device))):
+            parts.append(t.reshape(-1))
+            blocks.append((f"{name}_{half}", off, tuple(t.shape)))
+            off += t.numel()
+    hit = {"f32": f32, "mma": torch.cat(parts), "blocks": blocks}
+    blk["_packed"] = hit
+    return hit
 
 
 def eesp_stage_fused_eval(x: torch.Tensor, blocks: List[Dict],
@@ -174,10 +256,9 @@ def eesp_stage_fused_eval(x: torch.Tensor, blocks: List[Dict],
     b, c, h, w = x.shape
     k = len(dilations)
     n = c // k
-    if not 1 <= k <= MAX_K or n * k != c or n % 4 or min(dilations) < 1:
-        raise ValueError(f"kernel limits: 1..{MAX_K} branches, C = K*n with "
-                         "n a multiple of 4, dilations >= 1")
-    th, cap, pc = _tiling(h, w, n, c, max(dilations), x.element_size())
+    if not 1 <= k <= MAX_K or n * k != c or min(dilations) < 1:
+        raise ValueError(f"kernel limits: 1..{MAX_K} branches, C = K*n, "
+                         "dilations >= 1")
     dil = (ctypes.c_int * k)(*[int(d) for d in dilations])
     lib = _lib()
     bufs = [torch.empty_like(x), torch.empty_like(x) if len(blocks) > 1
@@ -189,12 +270,17 @@ def eesp_stage_fused_eval(x: torch.Tensor, blocks: List[Dict],
         if tuple(blk["ew"].shape) != ((k, n, n) if grouped else (c, c)):
             raise ValueError(f"expand weights {tuple(blk['ew'].shape)} do not "
                              f"fit C={c}, K={k}")
-        prm = _flat(blk, x.device)
+        if n % g_proj:
+            raise ValueError(f"{g_proj} proj groups do not divide n={n}")
+        t = _tiling(h, w, n, c, k, max(dilations), x.element_size(), g_proj,
+                    grouped)
+        prm = _pack(blk, x.device)
         out = bufs[i % 2]
         err = lib.eesp_unit_launch(
-            _cuda.ptr(cur), _cuda.ptr(out), _cuda.ptr(prm),
-            1 if x.dtype == torch.bfloat16 else 0, b, c, n, k, h, w, g_proj,
-            int(grouped), th, pc, cap, dil, _cuda.stream(x))
+            _cuda.ptr(cur), _cuda.ptr(out), _cuda.ptr(prm["f32"]),
+            _cuda.ptr(prm["mma"]), 1 if x.dtype == torch.bfloat16 else 0, b,
+            c, n, k, h, w, g_proj, int(grouped), t.th, t.pc, t.pp, t.cap,
+            t.zrows, t.smem, dil, _cuda.stream(x))
         _cuda.check(lib, err, "eesp_unit_launch")
         eesp_stage_fused_eval.launches += 1
         cur = out
@@ -209,6 +295,6 @@ def _lib():
     fn = lib.eesp_unit_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 3 + [ci] * 12 + [ctypes.POINTER(ci), vp]
+        fn.argtypes = [vp] * 4 + [ci] * 15 + [ctypes.POINTER(ci), vp]
         fn.restype = ci
     return lib
