@@ -9,16 +9,19 @@ Phases (each prints a line; any failure raises and exits non-zero):
   2. build: compile every CUDA kernel of mspl_tpu_torch/csrc with nvcc,
      one process per source, all at once.
   3. kernels: each kernel against its plain PyTorch version at the main
-     path's shapes (fp32 first, then bf16; the fused pass, the branch
-     stack, the pyramid-pool tail and the logits resize also at odd shapes
-     off the main path; both fused passes also on a self-training round's
-     mixed ensemble, 3 bf16 sources and an f32 3-class model, timed at the
-     round's batch), the tail's band widths and blocks per SM, then
-     each kernel's time at batch 128 (the branch stack's also plane by
-     plane) beside the plain version's, a library call's where one
-     computes the same function, and its bound on an H100 (memory at
-     3.35 TB/s, f32 arithmetic at 67 TFLOP/s, matrix products at the bf16
-     tensor-core 989 TFLOP/s; the largest of the three).
+     path's shapes (fp32 first, then bf16; both fused passes, the
+     decoder's and the EESP branch stacks, the pyramid-pool tail and the
+     logits resize also at odd shapes off the main path, the pixel-major
+     pass and the EESP stack also off their 16-byte words; both fused
+     passes also on a self-training round's mixed ensemble, 3 bf16
+     sources and an f32 3-class model, timed at the round's batch), the
+     tail's band widths and blocks per SM, then each kernel's time at
+     batch 128 (the decoder's branch stack's also plane by plane, the
+     EESP stack's beside the default route's cuDNN stack) beside the plain
+     version's, a library call's where one computes the same function,
+     and its bound on an H100 (memory at 3.35 TB/s, f32 arithmetic at 67
+     TFLOP/s, matrix products at the bf16 tensor-core 989 TFLOP/s; the
+     largest of the three).
   4. main path: three ESPNetv2-s2.0 sources in bf16 (CamVid 11, Cityscapes
      19, Forest 5 classes; random weights from a seed) at 256x480, batch
      128, through PseudoLabelGenerator (soft fusion, prob confidence,
@@ -168,9 +171,11 @@ def phase_build() -> None:
         text = log.read_text(errors="replace") if log.exists() else ""
         used = [ln.split("Used", 1)[1].split(",")[0].strip()
                 for ln in text.splitlines() if "Used" in ln]
+        kernels = text.count("Compiling entry function")
         stack = [int(ln.split("bytes stack frame")[0].split()[-1])
                  for ln in text.splitlines() if "bytes stack frame" in ln]
         regs.append(f"{name}: {'; '.join(used) or 'cached'}"
+                    + (f" [{kernels} kernels]" if kernels else "")
                     + (f" (stack frame up to {max(stack)} bytes)"
                        if stack else ""))
     print(f"phase 2 build: {secs:.1f} s for {len(_cuda.SOURCES)} sources "
@@ -183,6 +188,15 @@ def phase_build() -> None:
 
 def _rand(gen, shape, sd=1.0, dtype=torch.float32):
     return (torch.randn(shape, generator=gen, device="cuda") * sd).to(dtype)
+
+
+def _misaligned(t):
+    """t's values in a contiguous tensor that starts one element past a
+    16-byte word (the kernels' element-by-element copy paths)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def _affine(gen, n):
@@ -424,15 +438,55 @@ def _he_taps(gen, k, n):
 
 def eesp_calls(b, dtype, gen):
     """The 10 stride-1 EESP branch stacks of each source: proj [B, n, H, W]
-    with n = C / 4, taps [4, 3, 3, n], the unit's dilations."""
+    with n = C / 4, taps packed [n, 4 * 9] as the route hands them
+    (`pack_taps`), the unit's dilations."""
     calls = []
     for _ in SOURCES:
         for c, r_lim, units, h, w in STAGES:
             d = branch_dilations(4, r_lim)
             for _ in range(units):
                 calls.append((_rand(gen, (b, c // 4, h, w), 1.0, dtype),
-                              _he_taps(gen, 4, c // 4), d))
+                              eesp_branches.pack_taps(
+                                  _he_taps(gen, 4, c // 4)), d))
     return calls
+
+
+# stride-1 stacks off the main path: planes whose pixel counts are not
+# multiples of 8 (no plane on a 16-byte word), the run-time-dilation
+# instance at (2, 2) and at K = 3, a proj off its word, a plane cut into bands, and an odd width whose planes do start on
+# words (16-byte loads, shared stores value by value)
+EESP_ODD = (((3, 6, 11, 13), (2, 2)), ((2, 5, 21, 9), (1, 2, 4)),
+            ((2, 7, 17, 30), (1, 2, 3, 4)), ((2, 4, 16, 30), (1, 1, 2, 3)),
+            ((1, 2, 150, 260), (1, 2, 3, 4)), ((2, 3, 16, 9), (1, 2, 3, 4)))
+
+
+def eesp_odd_calls(dtype, gen):
+    calls = [(_rand(gen, shape, 1.0, dtype),
+              eesp_branches.pack_taps(_he_taps(gen, len(d), shape[1])), d)
+             for shape, d in EESP_ODD]
+    x, taps, d = calls[3]
+    calls[3] = (_misaligned(x), taps, d)
+    return calls
+
+
+def dw_kernels(taps, d, dtype):
+    """The K depthwise kernels [n, 1, 3, 3] in `dtype` of packed [n, K*9]
+    taps, as the default route's units hold them."""
+    dw = taps.reshape(taps.shape[0], len(d), 3, 3).to(dtype)
+    return [dw[:, ki:ki + 1] for ki in range(len(d))]
+
+
+def cudnn_stack(x, dw, d):
+    """The default route's branch stack on the same call, as
+    layers/eesp.py runs it: K depthwise F.conv2d (cuDNN) in the input
+    dtype, the HFF adds and the concat; dw from `dw_kernels`."""
+    branches = []
+    for wk, dd in zip(dw, d):
+        y = F.conv2d(x, wk, padding=dd, dilation=dd, groups=x.shape[1])
+        if branches:
+            y = y + branches[-1]
+        branches.append(y)
+    return torch.cat(branches, dim=1)
 
 
 def front_calls(b, dtype, gen):
@@ -529,15 +583,20 @@ def check_stage(gen):
     return err16, top_rms
 
 
-def pm_calls(b, dtype, gen):
-    return [([_rand(gen, (b, *HW, c), 2.0, dtype) for _, c in SOURCES],)]
+def pm_calls(b, dtype, gen, hw=HW):
+    return [([_rand(gen, (b, *hw, c), 2.0, dtype) for _, c in SOURCES],)]
 
 
 def check_pm(gen):
     """The pixel-major pass against its plain version: confidences within
     1e-5, labels equal where no rounding can flip them; fp32, bf16, and
-    the round's mixed ensemble.  Returns the largest confidence error of
-    bf16 and of the mixed ensemble."""
+    the round's mixed ensemble, each at the main path's plane and at the
+    odd pixel count of PSEUDO_ODD (its runs end inside a 16-byte copy),
+    the odd bf16 and mixed ensembles off their 16-byte words, an f32
+    ensemble into 5 target classes through random tables (the 8-column
+    table instances), and two ensembles whose stages and tables pass the
+    default 48 KB of shared memory a block.  Returns the largest confidence error of bf16 and
+    of the mixed ensemble."""
     src_convs = [label_conversion_matrix(n) for n, _ in SOURCES]
     kc = torch.full((3,), KC, device="cuda")
     kc_mixed = torch.tensor(MIXED_KC, device="cuda")
@@ -546,21 +605,52 @@ def check_pm(gen):
     def every(k):
         return [(m, c, k) for m, c in FUSIONS] + [("soft", "prob", None)]
 
-    for dtype, combos in ((torch.float32, every(kc)),
-                          (torch.bfloat16, [("soft", "prob", kc)]),
-                          ("mixed", every(kc_mixed))):
+    runs = []
+    for b, hw in ((8, HW), PSEUDO_ODD):
+        runs += [(torch.float32, b, hw, every(kc), False),
+                 (torch.bfloat16, b, hw, [("soft", "prob", kc)], False),
+                 ("mixed", ROUND_BATCH if hw == HW else b, hw,
+                  every(kc_mixed), False)]
+    b, hw = PSEUDO_ODD
+    runs += [(torch.bfloat16, b, hw, [("soft", "prob", kc),
+                                      ("hard", "entropy", kc)], True),
+             ("mixed", b, hw, [("soft", "entropy", kc_mixed)], True)]
+    # 5 target classes: the tables' 8-column instance
+    kc5 = torch.tensor((0.3, 0.35, 0.4, 0.45, 0.5), device="cuda")
+    runs += [("t5", b, hw, [("soft", "prob", kc5), ("soft", "entropy", kc5),
+                            ("hard", "prob", kc5)], False)]
+    # stages of 45-48 KB a block, which with the tables' static bytes
+    # beside them pass the default 48 KB: f32 [19, 5] and bf16 [19, 19, 5, 3]
+    runs += [((torch.float32, (19, 5)), b, hw, every(kc), False),
+             ((torch.bfloat16, (19, 19, 5, 3)), b, hw,
+              [("soft", "prob", kc), ("hard", "entropy", kc)], False)]
+    for dtype, b, hw, combos, off_word in runs:
         if dtype == "mixed":
-            logits, convs = mixed_calls(ROUND_BATCH, gen, channel_last=True)
+            logits, convs = mixed_calls(b, gen, hw, channel_last=True)
+        elif dtype == "t5":
+            (logits,), = pm_calls(b, torch.float32, gen, hw)
+            rng = np.random.default_rng(SEED)
+            convs = [rng.dirichlet(np.ones(6), c).astype(np.float32)
+                     for _, c in SOURCES]
+        elif isinstance(dtype, tuple):
+            logits = [_rand(gen, (b, *hw, c), 2.0, dtype[0])
+                      for c in dtype[1]]
+            rng = np.random.default_rng(SEED)
+            convs = [rng.dirichlet(np.ones(4), c).astype(np.float32)
+                     for c in dtype[1]]
         else:
-            (logits,), = pm_calls(8, dtype, gen)
+            (logits,), = pm_calls(b, dtype, gen, hw)
             convs = src_convs
+        if off_word:
+            logits = [_misaligned(x) for x in logits]
         for mode, conf_mode, k in combos:
             got_l, got_c = pseudo.fused_pseudo_pass_pm(
                 logits, convs, mode=mode, kc=k, conf_mode=conf_mode)
             want_l, want_c = pseudo.fused_pseudo_pass_plain(
                 logits, convs, mode=mode, kc=k, conf_mode=conf_mode)
             tag = (f"fused_pseudo_pass_pm {mode}/{conf_mode}"
-                   f"{'' if k is not None else '/no kc'} {dtype}")
+                   f"{'' if k is not None else '/no kc'} {dtype} {b}x{hw}"
+                   f"{' off its word' if off_word else ''}")
             err = check_close(tag, got_c, want_c, atol=1e-5)
             decided = _pseudo_decided([x.permute(0, 3, 1, 2) for x in logits],
                                       convs, mode, k if k is not None
@@ -569,7 +659,7 @@ def check_pm(gen):
             if bad or decided.float().mean() < 0.99:
                 raise AssertionError(f"{tag}: {bad} decided labels differ "
                                      f"({decided.float().mean():.4f} decided)")
-            if dtype != torch.float32:
+            if dtype in (torch.bfloat16, "mixed"):
                 err16[dtype] = max(err16.get(dtype, 0.0), err)
     return err16
 
@@ -736,7 +826,8 @@ def phase_kernels():
         with_odd(resize_calls, resize_odd_calls), gen, 1e-5, "resize_x2_cm")
     err16["eesp_branches"] = check_elementwise(
         eesp_branches.eesp_branches, eesp_branches.eesp_branches_plain,
-        eesp_calls, gen, 1e-5, "eesp_branches", rtol32=1e-5)
+        with_odd(eesp_calls, eesp_odd_calls), gen, 1e-5, "eesp_branches",
+        rtol32=1e-5)
     err16["down_front"] = check_elementwise(
         _flat_outputs(eesp_branches.down_front),
         _flat_outputs(eesp_branches.down_front_plain), front_calls, gen,
@@ -827,6 +918,16 @@ def phase_kernels():
                   "three sources' calls): " + ", ".join(
                       f"{h}x{w} {ms:.3f}" for (h, w), ms in
                       branch_by_shape(calls).items()), flush=True)
+        if name == "eesp_branches":
+            dw = [(x, dw_kernels(wts, d, x.dtype), d) for x, wts, d in calls]
+            c_ms = time_ms(lambda: [cudnn_stack(*a) for a in dw])
+            print(f"phase 3 time eesp_branches beside the default route's "
+                  f"branch stack on the same {len(calls)} calls (bf16, batch "
+                  f"{BATCH}; K depthwise F.conv2d, the HFF adds and the "
+                  f"concat, as layers/eesp.py runs it; several calls, so no "
+                  f"library row): kernel {k_ms:.3f} ms, cuDNN stack "
+                  f"{c_ms:.3f} ms", flush=True)
+            del dw
         del calls
     return rows
 
@@ -940,7 +1041,8 @@ def breakdown(gen, imgs_u8):
 # the kernels of mspl_tpu_torch/csrc, by name
 PORT_KERNELS = ("pseudo_cm_kernel", "pseudo_pm_kernel", "pyr_tail_kernel",
                 "down_prepass_kernel", "pyr_branches_kernel",
-                "resize_rows_kernel", "eesp_unit_kernel", "branches_kernel")
+                "resize_rows_kernel", "eesp_unit_kernel", "eesp_stack_kernel",
+                "branches_kernel")
 
 
 def profile_sweep(sweep, n_images: int, out_dir: str,
@@ -1180,7 +1282,7 @@ def phase_routes(n_batches: int, smi: str, gen_default, pool, lab_default,
         print(f"phase 5 route {route} one batch by stage (ms, CUDA events): "
               + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()),
               flush=True)
-        if profile_dir and route == "fuse_stages":
+        if profile_dir:
             profile_sweep(sweep, n_images, os.path.join(profile_dir, route),
                           f"phase 5 route {route}")
         del gen, sources, sweep
@@ -1818,8 +1920,8 @@ def main():
                          "phase-5 route (default 8)")
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile one main-path sweep, one sweep of "
-                         "the fuse_stages route and three train steps, "
-                         "into DIR")
+                         "each phase-5 route and three train steps, into "
+                         "DIR")
     args = ap.parse_args()
     smi = phase_device()
     phase_build()

@@ -13,43 +13,66 @@
 // kc[label] else ignore; without kc nothing is thresholded (unlike the
 // channel-major kernel, which thresholds against 0).
 //
-// Bound: bytes.  Each pixel reads its sum(C_m) logits (35 bf16 values on
-// the main shape) and writes 8 bytes; ~10 flops per logit.
-// Design: one thread per pixel.  A pixel's C_m logits of one model are
-// contiguous, so consecutive threads read consecutive runs of C_m values
-// and a warp's loads cover whole cache lines between them (staging each
-// block's run through shared memory with 16-byte loads was slower in a
-// trial on the H100).  The C_m values sit in a register array of 8, 16 or 32,
-// loaded unconditionally (indices past C_m repeat the last one and hit L1)
-// so the loads issue back to back.  The tables and kc are staged in shared
-// memory (broadcast reads).  Probabilities, not numerators, enter the
-// weighted sums of the tables, each exp times one reciprocal of the sum:
-// an IEEE division per channel takes its slow path on the tiny
-// exponentials of confident logits (several times slower on model logits
-// in a trial on the H100; see PERF.md for the kernel's time in the route).
-// The arguments are __grid_constant__, so the per-model pointers and widths
-// indexed at run time are read in place, not copied to local memory.
-// Each model's logits are f32 or bf16 on their own, as the JAX kernel
-// casts each model's block to f32 (a self-training round ensembles bf16
-// sources with an f32 target model): a bit per model says which, and the
-// model loop, uniform across the grid, takes that model's load.
+// Bound: bytes.  Each pixel reads its sum(C_m) logits (35 bf16 values on the
+// main shape) and writes 8 bytes; ~10 flops per logit. Design: the
+// channel-major pass's streaming design (pseudo_cm.cuh: 4 pixels a thread,
+// __expf, one reciprocal a pixel and model, tables padded to a 4- or 8-column
+// instance in shared memory, __grid_constant__ arguments, a per-model dtype
+// bit), over rows of C_m values.  A warp takes a run of 128 consecutive pixels;
+// of each model the run is 128 * C_m contiguous values, which the warp copies
+// into its own stage in shared memory with 16-byte cp.async copies (a warp's
+// copy instruction moves 512 contiguous bytes; all models' copies are in flight
+// at once, while the block stages the tables), then waits for its own copies
+// and syncs the warp only: no block barrier stands between a warp's loads and
+// its arithmetic.  Lane l then takes pixels l, l + 32, l + 64 and l + 96 of the
+// run, whose channel c sits at value (l + 32 j) * C_m + c of the stage: lanes
+// 32 pixels apart read words C_m apart, no bank conflict for odd C_m in f32 and
+// at most 2-way in bf16, and a warp writes 32 consecutive labels and
+// confidences per store.  Per pixel and model, in the plain version's order:
+// the max over the model's channels, then exp(x - max) through __expf, the
+// tables' weighted sums and one reciprocal.  The channel loop runs to the
+// model's C_m at run time (the values are in shared memory, so no register
+// width is padded: the earlier thread-a-pixel design's register widths 8/16/32
+// issued 32 loads for Cityscapes' 19 channels).  Where a logit tensor is not on
+// a 16-byte word, the VEC=false instance copies element by element; a run past
+// the last pixel copies what is there (cp.async fills the rest of a 16-byte
+// chunk with zeros) and masks its stores, so any pixel count takes the vector
+// path.  The stage's bytes a warp, and so the warps a block, come from the
+// wrapper's plan (ops/pseudo.py pm_plan).  One instance serves every
+// ensemble's dtypes: each model's dtype bit is read in the model loop.  All-f32
+// and all-bf16 instances beside it read no faster (H100 80GB HBM3 at 700 W, bf16
+// batch 128: 0.5265 and 0.5242 ms against its 0.5266 and 0.5302, in turns in
+// one run of tools/torch_route_kernels.py), so there are none: 4 instances
+// (table width 4 or 8, VEC or not).
+// On the H100 the main path's call (bf16, batch 128) takes ~0.53 ms, 1.44x its
+// bound (the thread-a-pixel design: 1.68; tools/torch_route_kernels.py,
+// PERF.md).  The other candidate, each thread's 4 consecutive pixels loaded
+// straight into registers with C_m fixed at compile time (one instance for
+// every channel count), read 0.548 ms against this design's 0.527 in the same
+// run, and was dropped.
 #include "common.cuh"
 
 #define MAX_MODELS 4
 #define MAX_C 32
 #define MAX_T1 8
+#define PM_RUN 128  // pixels a warp
+#define VP 4        // pixels a lane: l + 32 j
+#define MAX_WARPS 4
 
 struct PmArgs {
   const void* logits[MAX_MODELS];
   int c[MAX_MODELS];
+  int soff[MAX_MODELS];  // byte offset of model m's run in a warp's stage
+  int wbytes;            // stage bytes a warp
   int n_models;
   int bf16;        // bit m set: model m's logits are bf16, else f32
   int t;           // target classes T; the tables have T+1 columns
+  int hard, entropy, has_kc;
   int64_t total;   // B*H*W
-  int min_agree;
+  float min_agree;
   int ignore;
-  int has_kc;
   float inv_log;   // 1 / ln(T+1)
+  float inv_n;     // 1 / N
   const float* tables;  // per model [C_m, T+1], concatenated in model order
   const float* kc;      // [T]
   int32_t* out_label;
@@ -60,173 +83,306 @@ __device__ __forceinline__ float xlogx(float p) {
   return p > 0.f ? p * logf(fmaxf(p, 1e-30f)) : 0.f;
 }
 
-// q[t] = sum_c softmax(x)_c * tab[c, t] over the T+1 columns.
-template <int CM, typename T>
-__device__ __forceinline__ void model_probs(const T* __restrict__ row, int cm,
-                                            const float* tab, int t1,
-                                            float q[MAX_T1]) {
-  float v[CM];
-#pragma unroll
-  for (int c = 0; c < CM; ++c) v[c] = to_f32(row[min(c, cm - 1)]);
-  float mx = v[0];
-#pragma unroll
-  for (int c = 1; c < CM; ++c)
-    if (c < cm) mx = fmaxf(mx, v[c]);
-  float tot = 0.f;
-#pragma unroll
-  for (int c = 0; c < CM; ++c) {
-    v[c] = c < cm ? expf(v[c] - mx) : 0.f;
-    tot += v[c];
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned int s = (unsigned int)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
+}
+
+// A warp's run of one model, npx pixels of c values of `es` bytes, into
+// its stage: 16-byte copies (VEC) or element by element.
+template <bool VEC>
+__device__ __forceinline__ void stage_run(unsigned char* dst,
+                                          const unsigned char* src,
+                                          int nbytes, int es, int lane) {
+  if (VEC) {
+    for (int i = lane * 16; i < nbytes; i += 32 * 16)
+      cp_async16(dst + i, src + i, min(16, nbytes - i));
+  } else if (es == 2) {
+    for (int i = lane; i < nbytes / 2; i += 32)
+      reinterpret_cast<unsigned short*>(dst)[i] =
+          reinterpret_cast<const unsigned short*>(src)[i];
+  } else {
+    for (int i = lane; i < nbytes / 4; i += 32)
+      reinterpret_cast<float*>(dst)[i] = reinterpret_cast<const float*>(src)[i];
   }
-  const float inv = 1.f / tot;
+}
+
+// Softmax numerators of one model's 4 pixels of a lane, pooled into the
+// target columns: q[t][j] = sum_c exp(x_c - max) * tab[c][t]; inv[j] =
+// 1 / sum_c exp(...).  s: the model's staged run; tab: its table padded to
+// T1 columns.
+template <int T1, typename T>
+__device__ __forceinline__ void model_probs(const T* s, int cm, int lane,
+                                            const float* tab, float q[T1][VP],
+                                            float inv[VP]) {
+  const T* px[VP];
+  float mx[VP], tot[VP];
 #pragma unroll
-  for (int t = 0; t < MAX_T1; ++t) q[t] = 0.f;
+  for (int j = 0; j < VP; ++j) {
+    px[j] = s + (lane + 32 * j) * cm;
+    mx[j] = to_f32(px[j][0]);
+    tot[j] = 0.f;
+  }
+  for (int c = 1; c < cm; ++c)
 #pragma unroll
-  for (int c = 0; c < CM; ++c) {
-    if (c < cm) {
-      const float p = v[c] * inv;
-      const float* tr = tab + c * t1;
+    for (int j = 0; j < VP; ++j) mx[j] = fmaxf(mx[j], to_f32(px[j][c]));
 #pragma unroll
-      for (int t = 0; t < MAX_T1; ++t)
-        if (t < t1) q[t] += p * tr[t];
+  for (int t = 0; t < T1; ++t)
+#pragma unroll
+    for (int j = 0; j < VP; ++j) q[t][j] = 0.f;
+  for (int c = 0; c < cm; ++c) {
+    float tr[T1];
+#pragma unroll
+    for (int t = 0; t < T1; t += 4) {
+      const float4 t4 = reinterpret_cast<const float4*>(tab + c * T1)[t / 4];
+      tr[t] = t4.x; tr[t + 1] = t4.y; tr[t + 2] = t4.z; tr[t + 3] = t4.w;
+    }
+#pragma unroll
+    for (int j = 0; j < VP; ++j) {
+      const float e = __expf(to_f32(px[j][c]) - mx[j]);
+      tot[j] += e;
+#pragma unroll
+      for (int t = 0; t < T1; ++t) q[t][j] += e * tr[t];
     }
   }
-}
-
-// One model's q at pixel p: its row read as T, its register width 8, 16
-// or 32.
-template <typename T>
-__device__ __forceinline__ void model_at(const void* logits, int64_t p,
-                                         int cm, const float* tab, int t1,
-                                         float q[MAX_T1]) {
-  const T* row = reinterpret_cast<const T*>(logits) + p * cm;
-  if (cm <= 8) model_probs<8>(row, cm, tab, t1, q);
-  else if (cm <= 16) model_probs<16>(row, cm, tab, t1, q);
-  else model_probs<MAX_C>(row, cm, tab, t1, q);
-}
-
-template <bool HARD, bool ENTROPY>
-__global__ void __launch_bounds__(256)
-pseudo_pm_kernel(const __grid_constant__ PmArgs a) {
-  __shared__ float s_tab[MAX_MODELS * MAX_C * MAX_T1];
-  __shared__ float s_kc[MAX_T1];
-  const int t1 = a.t + 1;
-  int ntab = 0;
-  for (int m = 0; m < a.n_models; ++m) ntab += a.c[m] * t1;
-  for (int i = threadIdx.x; i < ntab; i += blockDim.x) s_tab[i] = a.tables[i];
-  if (a.has_kc && threadIdx.x < a.t) s_kc[threadIdx.x] = a.kc[threadIdx.x];
-  __syncthreads();
-
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= a.total) return;
-  float acc[MAX_T1];  // soft: summed probabilities (T+1); hard: votes (T)
 #pragma unroll
-  for (int t = 0; t < MAX_T1; ++t) acc[t] = 0.f;
-  int toff = 0;
+  for (int j = 0; j < VP; ++j) inv[j] = 1.f / tot[j];
+}
+
+// The tables, padded to T1 columns, and kc into shared memory (the caller
+// syncs the block).
+template <int T1>
+__device__ __forceinline__ void stage_tables(const PmArgs& a, float* s_tab,
+                                             float* s_kc) {
+  const int t1 = a.t + 1;
+  int src = 0;
   for (int m = 0; m < a.n_models; ++m) {
-    const int cm = a.c[m];
-    float q[MAX_T1];
-    if ((a.bf16 >> m) & 1)
-      model_at<__nv_bfloat16>(a.logits[m], p, cm, s_tab + toff, t1, q);
-    else
-      model_at<float>(a.logits[m], p, cm, s_tab + toff, t1, q);
-    if (HARD) {
-      float best = q[0];
+    const int n = a.c[m] * T1;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int c = i / T1, t = i - c * T1;
+      s_tab[m * MAX_C * T1 + i] = t < t1 ? a.tables[src + c * t1 + t] : 0.f;
+    }
+    src += a.c[m] * t1;
+  }
+  if (a.has_kc && threadIdx.x < a.t) s_kc[threadIdx.x] = a.kc[threadIdx.x];
+}
+
+// One model's q and inv into the 4 pixels' sums: soft, the T+1 columns'
+// probabilities; hard, a vote for the first argmax over T+1 (T, the
+// ignore column, votes for nothing).
+template <int T1>
+__device__ __forceinline__ void accumulate(const PmArgs& a,
+                                           const float q[T1][VP],
+                                           const float inv[VP],
+                                           float acc[T1][VP]) {
+  const int t1 = a.t + 1;
+  if (a.hard) {
+#pragma unroll
+    for (int j = 0; j < VP; ++j) {
+      float best = q[0][j] * inv[j];
       int lab = 0;
 #pragma unroll
-      for (int t = 1; t < MAX_T1; ++t)
-        if (t < t1 && q[t] > best) { best = q[t]; lab = t; }
+      for (int t = 1; t < T1; ++t) {
+        if (t < t1) {
+          const float qt = q[t][j] * inv[j];
+          if (qt > best) { best = qt; lab = t; }
+        }
+      }
 #pragma unroll
-      for (int t = 0; t < MAX_T1; ++t)
-        if (t < a.t && lab == t) acc[t] += 1.f;  // lab == T votes for nothing
-    } else {
-#pragma unroll
-      for (int t = 0; t < MAX_T1; ++t)
-        if (t < t1) acc[t] += q[t];
+      for (int t = 0; t < T1; ++t)
+        if (t < a.t && lab == t) acc[t][j] += 1.f;
     }
-    toff += cm * t1;
-  }
-
-  const float n = (float)a.n_models;
-  float conf;
-  int lbl = 0;
-  if (HARD) {
-    float top = acc[0];
-#pragma unroll
-    for (int t = 1; t < MAX_T1; ++t)
-      if (t < a.t && acc[t] > top) { top = acc[t]; lbl = t; }
-    if (ENTROPY) {
-      float tot = 0.f, s = 0.f;
-#pragma unroll
-      for (int t = 0; t < MAX_T1; ++t)
-        if (t < a.t) { tot += acc[t]; s += xlogx(acc[t] / n); }
-      s += xlogx((n - tot) / n);
-      conf = 1.f + s * a.inv_log;
-    } else {
-      conf = top / n;
-    }
-    if (!(top >= (float)a.min_agree)) lbl = a.ignore;
   } else {
 #pragma unroll
-    for (int t = 0; t < MAX_T1; ++t) acc[t] = acc[t] / n;
-    float best = acc[0];
+    for (int t = 0; t < T1; ++t)
 #pragma unroll
-    for (int t = 1; t < MAX_T1; ++t)
-      if (t < a.t && acc[t] > best) { best = acc[t]; lbl = t; }
-    if (ENTROPY) {
+      for (int j = 0; j < VP; ++j)
+        if (t < t1) acc[t][j] += q[t][j] * inv[j];
+  }
+}
+
+// Pixel j's label and confidence from the models' sums.
+template <int T1>
+__device__ __forceinline__ void decide(const PmArgs& a, const float acc[T1][VP],
+                                       int j, const float* s_kc, int& lbl,
+                                       float& conf) {
+  const int t1 = a.t + 1;
+  float cf, top;
+  int lb = 0;
+  if (a.hard) {
+    top = acc[0][j];
+#pragma unroll
+    for (int t = 1; t < T1; ++t)
+      if (t < a.t && acc[t][j] > top) { top = acc[t][j]; lb = t; }
+    if (a.entropy) {
+      float tot = 0.f, s = 0.f;
+#pragma unroll
+      for (int t = 0; t < T1; ++t)
+        if (t < a.t) { tot += acc[t][j]; s += xlogx(acc[t][j] * a.inv_n); }
+      s += xlogx(((float)a.n_models - tot) * a.inv_n);
+      cf = 1.f + s * a.inv_log;
+    } else {
+      cf = top * a.inv_n;
+    }
+    if (!(top >= a.min_agree)) lb = a.ignore;
+  } else {
+    float f[T1];
+#pragma unroll
+    for (int t = 0; t < T1; ++t) f[t] = acc[t][j] * a.inv_n;
+    float best = f[0];
+#pragma unroll
+    for (int t = 1; t < T1; ++t)
+      if (t < a.t && f[t] > best) { best = f[t]; lb = t; }
+    if (a.entropy) {
       float s = 0.f;
 #pragma unroll
-      for (int t = 0; t < MAX_T1; ++t)
-        if (t < t1) s += xlogx(acc[t]);
-      conf = 1.f + s * a.inv_log;
+      for (int t = 0; t < T1; ++t)
+        if (t < t1) s += xlogx(f[t]);
+      cf = 1.f + s * a.inv_log;
     } else {
-      conf = best;
+      cf = best;
     }
   }
   if (a.has_kc) {
-    const float thr = (lbl >= 0 && lbl < a.t) ? s_kc[lbl] : s_kc[0];
-    if (!(conf >= thr)) lbl = a.ignore;
+    const float thr = (lb >= 0 && lb < a.t) ? s_kc[lb] : s_kc[0];
+    if (!(cf >= thr)) lb = a.ignore;
   }
-  a.out_label[p] = lbl;
-  a.out_conf[p] = conf;
+  lbl = lb;
+  conf = cf;
 }
 
-static void launch(const PmArgs& a, int hard, int entropy, cudaStream_t st) {
-  const unsigned int grid = mspl_blocks(a.total, 256);
-  if (hard && entropy) pseudo_pm_kernel<true, true><<<grid, 256, 0, st>>>(a);
-  else if (hard) pseudo_pm_kernel<true, false><<<grid, 256, 0, st>>>(a);
-  else if (entropy) pseudo_pm_kernel<false, true><<<grid, 256, 0, st>>>(a);
-  else pseudo_pm_kernel<false, false><<<grid, 256, 0, st>>>(a);
+// grid: runs of 128 pixels, `warps` a block; block 32 * warps threads;
+// dynamic shared memory warps * wbytes.
+template <int T1, bool VEC>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+pseudo_pm_kernel(const __grid_constant__ PmArgs a) {
+  extern __shared__ __align__(16) unsigned char s_stage[];
+  __shared__ __align__(16) float s_tab[MAX_MODELS * MAX_C * T1];
+  __shared__ float s_kc[MAX_T1];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t pix0 =
+      ((int64_t)blockIdx.x * (blockDim.x >> 5) + warp) * PM_RUN;
+  const int npx = (int)min((int64_t)PM_RUN, a.total - pix0);
+  unsigned char* stage = s_stage + warp * a.wbytes;
+  if (npx > 0) {
+    for (int m = 0; m < a.n_models; ++m) {
+      const bool bf = (a.bf16 >> m) & 1;
+      const int es = bf ? 2 : 4, row = a.c[m] * es;
+      stage_run<VEC>(stage + a.soff[m],
+                     reinterpret_cast<const unsigned char*>(a.logits[m]) +
+                         pix0 * row,
+                     npx * row, es, lane);
+    }
+    if (VEC) asm volatile("cp.async.commit_group;\n" ::);
+  }
+  stage_tables<T1>(a, s_tab, s_kc);
+  __syncthreads();
+  if (npx <= 0) return;
+  if (VEC) asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncwarp();
+
+  float acc[T1][VP];  // soft: summed probabilities (T+1); hard: votes (T)
+#pragma unroll
+  for (int t = 0; t < T1; ++t)
+#pragma unroll
+    for (int j = 0; j < VP; ++j) acc[t][j] = 0.f;
+  for (int m = 0; m < a.n_models; ++m) {
+    const float* tab = s_tab + m * MAX_C * T1;
+    float q[T1][VP], inv[VP];
+    const bool bf = (a.bf16 >> m) & 1;
+    if (bf)
+      model_probs<T1>(reinterpret_cast<const __nv_bfloat16*>(stage +
+                                                             a.soff[m]),
+                      a.c[m], lane, tab, q, inv);
+    else
+      model_probs<T1>(reinterpret_cast<const float*>(stage + a.soff[m]),
+                      a.c[m], lane, tab, q, inv);
+    accumulate<T1>(a, q, inv, acc);
+  }
+#pragma unroll
+  for (int j = 0; j < VP; ++j) {
+    int lb;
+    float cf;
+    decide<T1>(a, acc, j, s_kc, lb, cf);
+    const int p = lane + 32 * j;
+    if (p < npx) {
+      a.out_label[pix0 + p] = lb;
+      a.out_conf[pix0 + p] = cf;
+    }
+  }
+}
+
+template <int T1>
+static int launch_typed(const PmArgs& a, int warps, int vec,
+                        cudaStream_t st) {
+  const int smem = warps * a.wbytes;
+  const unsigned int grid = mspl_blocks(a.total, warps * PM_RUN);
+  auto kern = vec ? pseudo_pm_kernel<T1, true> : pseudo_pm_kernel<T1, false>;
+  // always opt in: the default 48 KB covers the static tables too, so a
+  // stage just under 48 KB would be refused without it
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<grid, warps * 32, smem, st>>>(a);
+  return 0;
 }
 
 // logits l0..l3 [B, H, W, C_m] (n_models of them; bit m of bf16_mask set:
-// model m's are bf16, else f32), c0..c3 their channels.
+// model m's are bf16, else f32), c0..c3 their channels; the plan
+// (ops/pseudo.py pm_plan): o0..o3 each model's byte offset in a warp's
+// stage, wbytes the stage's bytes, warps a block, t1_inst the tables'
+// padded width (4 or 8, >= T+1), vec: 16-byte copies (every logit tensor on
+// a 16-byte word).  Writes label int32 and conf f32 [B, H, W].
 extern "C" int pseudo_pm_launch(
     const void* l0, const void* l1, const void* l2, const void* l3,
     int c0, int c1, int c2, int c3, int n_models, const float* tables,
     const float* kc, int has_kc, int t, long long total, int bf16_mask,
-    int hard, int entropy, int min_agree, int ignore, float inv_log,
-    void* out_label, void* out_conf, void* stream) {
+    int hard, int entropy, float min_agree, int ignore, float inv_log,
+    int o0, int o1, int o2, int o3, int wbytes, int warps, int t1_inst,
+    int vec, void* out_label, void* out_conf, void* stream) {
   PmArgs a;
   const void* ls[MAX_MODELS] = {l0, l1, l2, l3};
   const int cs[MAX_MODELS] = {c0, c1, c2, c3};
+  const int os[MAX_MODELS] = {o0, o1, o2, o3};
+  if (n_models < 1 || n_models > MAX_MODELS || warps < 1 ||
+      warps > MAX_WARPS || (t1_inst != 4 && t1_inst != 8) ||
+      t + 1 > t1_inst || wbytes % 16 ||
+      warps * wbytes + 4 * (MAX_MODELS * MAX_C * t1_inst + MAX_T1) >
+          227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  a.bf16 = bf16_mask & ((1 << n_models) - 1);
   for (int m = 0; m < MAX_MODELS; ++m) {
     a.logits[m] = ls[m];
     a.c[m] = cs[m];
+    a.soff[m] = os[m];
+    if (m < n_models) {
+      const int es = (a.bf16 >> m) & 1 ? 2 : 4;
+      if (cs[m] < 1 || cs[m] > MAX_C || os[m] % 16 ||
+          os[m] + PM_RUN * cs[m] * es > wbytes)
+        return (int)cudaErrorInvalidValue;
+    }
   }
+  a.wbytes = wbytes;
   a.n_models = n_models;
-  a.bf16 = bf16_mask;
   a.t = t;
+  a.hard = hard;
+  a.entropy = entropy;
+  a.has_kc = has_kc;
   a.total = total;
   a.min_agree = min_agree;
   a.ignore = ignore;
-  a.has_kc = has_kc;
   a.inv_log = inv_log;
+  a.inv_n = 1.f / (float)n_models;
   a.tables = tables;
   a.kc = kc;
   a.out_label = reinterpret_cast<int32_t*>(out_label);
   a.out_conf = reinterpret_cast<float*>(out_conf);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (total > 0) launch(a, hard, entropy, st);
-  return (int)cudaGetLastError();
+  int err = 0;
+  if (total > 0)
+    err = t1_inst == 4 ? launch_typed<4>(a, warps, vec, st)
+                       : launch_typed<8>(a, warps, vec, st);
+  return err ? err : (int)cudaGetLastError();
 }

@@ -22,7 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mspl_tpu_torch.layers.conv_blocks import BR, CB, CBR, PReLU
-from mspl_tpu_torch.ops.eesp_branches import eesp_branches
+from mspl_tpu_torch.ops.eesp_branches import eesp_branches, pack_taps
 
 
 def branch_dilations(k: int, r_lim: int) -> Tuple[int, ...]:
@@ -66,6 +66,22 @@ class EESP(nn.Module):
         if not self.avg:
             self.module_act = PReLU(nout)
 
+    def branch_taps(self) -> torch.Tensor:
+        """The K depthwise kernels in the branch kernel's packed [n, K*9]
+        f32 layout (`pack_taps`), on their own device, detached (the route
+        is eval only); cached on the unit until a kernel's storage or
+        `_version` changes (in-place loads such as `load_flax_variables`
+        bump it), so a forward does not rebuild it.  Made outside inference
+        mode, so a later forward with autograd on may still read it."""
+        key = tuple((wk.data_ptr(), wk._version, wk.device) for wk in self.dw)
+        hit = getattr(self, "_packed_taps", None)
+        if hit is None or hit[0] != key:
+            with torch.inference_mode(False), torch.no_grad():
+                taps = torch.stack([wk[:, 0] for wk in self.dw])
+                hit = (key, pack_taps(taps.permute(0, 2, 3, 1)))
+            self._packed_taps = hit
+        return hit[1]
+
     def forward(self, x: torch.Tensor, with_pool: bool = False):
         proj = self.proj_1x1(x)
         # The DownSampler front kernel (ops/eesp_branches.py::down_front)
@@ -79,11 +95,7 @@ class EESP(nn.Module):
                     "use_pallas routes an EESP unit through the eval-only "
                     "branch kernel (its TPU kernel, pallas_eesp.py, has no "
                     "VJP); train with use_pallas=False")
-            # the K kernels in the kernel's [K, 3, 3, n] layout, stacked on
-            # their own device (no host round trip)
-            taps = torch.stack([wk[:, 0] for wk in self.dw])
-            taps = taps.permute(0, 2, 3, 1)
-            merged = eesp_branches(proj, taps, self.dilations)
+            merged = eesp_branches(proj, self.branch_taps(), self.dilations)
         else:
             branches = []
             for wk, d in zip(self.dw, self.dilations):

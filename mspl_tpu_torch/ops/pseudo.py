@@ -11,14 +11,16 @@ argmax and confidence, and with kc the per-class threshold.  Unlike the
 channel-major pass (ops/pseudo_cm.py), kc=None thresholds nothing.
 
 Bound on the card: bytes (every logit read once, 8 bytes written per
-pixel); see the source note in csrc/pseudo_pm.cu for the design.
+pixel).  The kernel streams runs of 128 pixels a warp through a per-warp
+stage in shared memory, 4 pixels a lane; `pm_plan` says how each call is
+laid out, and the source note in csrc/pseudo_pm.cu why.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +31,38 @@ from mspl_tpu_torch.ops.pseudo_cm import (MAX_C, MAX_MODELS, MAX_T1,
 from mspl_tpu_torch.utils.registry import IGNORE_LABEL
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# csrc/pseudo_pm.cu: PM_RUN pixels a warp, VP of them a lane, MAX_WARPS a
+# block
+RUN_PIXELS, PIXELS_PER_LANE, MAX_WARPS = 128, 4, 4
+STAGE_CAP = 96 * 1024  # shared bytes of a block's stages the plan keeps to
+
+
+class PmPlan(NamedTuple):
+    """How the pixel-major kernel covers a call: each model's byte offset
+    in a warp's stage (its run of RUN_PIXELS x C_m values, rounded up to
+    16 bytes), the stage's bytes a warp, warps a block, the tables' padded
+    width (4 or 8 columns, the instance that holds T+1), and whether the
+    warps copy their runs with 16-byte copies (every logit tensor on a
+    16-byte word; a run's start then always is: 128 * C_m * size bytes
+    into the tensor) or element by element."""
+    offsets: Tuple[int, ...]
+    wbytes: int
+    warps: int
+    t1: int
+    vec: bool
+
+
+def pm_plan(channels: Sequence[int], itemsizes: Sequence[int], n_t: int,
+            aligned: bool) -> PmPlan:
+    """The plan of `fused_pseudo_pass_pm` for models of `channels` logits
+    a pixel, of `itemsizes` bytes each, and T = n_t target classes."""
+    offsets, o = [], 0
+    for c, size in zip(channels, itemsizes):
+        offsets.append(o)
+        o += -(-RUN_PIXELS * c * size // 16) * 16
+    warps = max(1, min(MAX_WARPS, STAGE_CAP // o))
+    return PmPlan(tuple(offsets), o, warps, 4 if n_t + 1 <= 4 else MAX_T1,
+                  aligned)
 
 
 def convert_probs(probs: torch.Tensor, conversion) -> torch.Tensor:
@@ -167,15 +201,19 @@ def fused_pseudo_pass_pm(
     kc_t = (None if kc is None else torch.broadcast_to(torch.as_tensor(
         kc, dtype=torch.float32, device=dev), (n_t,)).contiguous())
     need = min_agree if min_agree is not None else (n // 2 + 1)
-    ptrs = [_cuda.ptr(x) for x in logits_list] + [None] * (MAX_MODELS - n)
-    cs = [int(c.shape[0]) for c in convs] + [0] * (MAX_MODELS - n)
+    pad = [0] * (MAX_MODELS - n)
+    ptrs = [_cuda.ptr(x) for x in logits_list] + [None] * len(pad)
+    cs = [int(c.shape[0]) for c in convs]
+    plan = pm_plan(cs, [x.element_size() for x in logits_list], n_t,
+                   all(x.data_ptr() % 16 == 0 for x in logits_list))
     lib = _lib()
     err = lib.pseudo_pm_launch(
-        *ptrs, *cs, n, _cuda.ptr(tables),
+        *ptrs, *(cs + pad), n, _cuda.ptr(tables),
         None if kc_t is None else _cuda.ptr(kc_t), int(kc_t is not None), n_t,
         label.numel(), bf16_mask(logits_list),
-        int(mode == "hard"), int(conf_mode == "entropy"), int(need),
-        ignore_label, 1.0 / math.log(n_t + 1), _cuda.ptr(label),
+        int(mode == "hard"), int(conf_mode == "entropy"), float(need),
+        ignore_label, 1.0 / math.log(n_t + 1), *(list(plan.offsets) + pad),
+        plan.wbytes, plan.warps, plan.t1, int(plan.vec), _cuda.ptr(label),
         _cuda.ptr(conf), _cuda.stream(x0))
     _cuda.check(lib, err, "pseudo_pm_launch")
     fused_pseudo_pass_pm.launches += 1
@@ -189,10 +227,13 @@ def _lib():
     lib = _cuda.load("pseudo_pm")
     fn = lib.pseudo_pm_launch
     if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # logits, channels, N, tables, kc, has kc, T, B*H*W, bf16 mask, hard,
+        # entropy, min_agree, ignore, 1/ln(T+1), stage offsets, stage bytes,
+        # warps, T1 instance, vec, label, conf, stream
         fn.argtypes = ([vp] * 4 + [ci] * 5 + [vp, vp, ci, ci,
                                                ctypes.c_longlong, ci, ci, ci,
-                                               ci, ci, ctypes.c_float, vp, vp,
-                                               vp])
+                                               cf, ci, cf] + [ci] * 8
+                       + [vp, vp, vp])
         fn.restype = ci
     return lib

@@ -26,7 +26,8 @@ from mspl_tpu.ops.pallas_eesp_stage import eesp_block_params as jax_params
 from mspl_tpu.ops.pallas_eesp_stage import eesp_stage_fused_eval as jax_stage
 from mspl_tpu_torch.layers.eesp import EESP
 from mspl_tpu_torch.models.espnetv2 import ESPNetv2Segmentation
-from mspl_tpu_torch.ops.eesp_branches import down_front, eesp_branches
+from mspl_tpu_torch.ops.eesp_branches import (down_front, eesp_branches,
+                                              pack_taps)
 from mspl_tpu_torch.ops.eesp_stage import (eesp_block_params,
                                            eesp_stage_fused_eval)
 from mspl_tpu_torch.pseudo.generate import PseudoLabelGenerator, make_source
@@ -63,7 +64,7 @@ def test_eesp_branches_matches_pallas(dilations, hw):
     w = rng.normal(size=(len(dilations), 3, 3, n)).astype(np.float32)
     want = eesp_branches_pallas(jnp.asarray(x), jnp.asarray(w), dilations,
                                 interpret=True)
-    got = eesp_branches(_nchw(x), _t(w), dilations)
+    got = eesp_branches(_nchw(x), pack_taps(_t(w)), dilations)
     assert got.shape == (2, len(dilations) * n, *hw)
     np.testing.assert_allclose(_nhwc(got), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
