@@ -14,10 +14,15 @@ Phases (each prints a line; any failure raises and exits non-zero):
      logits resize also at odd shapes off the main path, the pixel-major
      pass and the EESP stack also off their 16-byte words; both fused
      passes also on a self-training round's mixed ensemble, 3 bf16
-     sources and an f32 3-class model, timed at the round's batch), the
-     tail's band widths and blocks per SM, then each kernel's time at
-     batch 128 (the decoder's branch stack's also plane by plane, the
-     EESP stack's beside the default route's cuDNN stack) beside the plain
+     sources and an f32 3-class model, timed at the round's batch, and
+     at ensembles of 5 and 8 models, 9 refused; the DownSampler front
+     also at odd shapes, in bands, at run-time dilations and off its
+     words, and its backward's gradients; the fused stage also at a
+     512x1024 image's wide planes in f32, in column bands, timed beside
+     bf16), the tail's band widths and blocks per SM, then each kernel's
+     time at batch 128 (the decoder's branch stack's also plane by plane,
+     the EESP stack's and the DownSampler front's beside the default
+     route's cuDNN stacks) beside the plain
      version's, a library call's where one computes the same function,
      and its bound on an H100 (memory at 3.35 TB/s, f32 arithmetic at 67
      TFLOP/s, matrix products at the bf16 tensor-core 989 TFLOP/s; the
@@ -489,12 +494,87 @@ def cudnn_stack(x, dw, d):
     return torch.cat(branches, dim=1)
 
 
+def cudnn_front(x, proj, dw, d):
+    """The default route's DownSampler front on the same call, as
+    layers/eesp.py runs a strided unit: F.avg_pool2d of x, and K strided
+    depthwise F.conv2d (cuDNN) of proj in the input dtype with the HFF
+    adds and the concat; dw from `dw_kernels`."""
+    pool = F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=True)
+    branches = []
+    for wk, dd in zip(dw, d):
+        y = F.conv2d(proj, wk, stride=2, padding=dd, dilation=dd,
+                     groups=proj.shape[1])
+        if branches:
+            y = y + branches[-1]
+        branches.append(y)
+    return pool, torch.cat(branches, dim=1)
+
+
 def front_calls(b, dtype, gen):
-    """The 3 DownSampler fronts of each source: x, proj, taps, dilations."""
+    """The 3 DownSampler fronts of each source: x, proj, taps packed
+    [n, 4 * 9] (`pack_taps`), dilations."""
     return [(_rand(gen, (b, nin, h, w), 1.0, dtype),
-             _rand(gen, (b, n, h, w), 1.0, dtype), _he_taps(gen, 4, n),
-             (1, 2, 3, 4))
+             _rand(gen, (b, n, h, w), 1.0, dtype),
+             eesp_branches.pack_taps(_he_taps(gen, 4, n)), (1, 2, 3, 4))
             for _ in SOURCES for nin, n, h, w in FRONTS]
+
+
+# DownSampler fronts off the main path, (B, nin, n, H, W) and dilations:
+# odd H and W (no plane on a 16-byte word, the pool's tail strip and
+# element-by-element stores), a plane cut into bands of output rows, the
+# run-time-dilation instance at (2, 2), at K = 3 and at the JAX tests'
+# (1, 2, 4, 8), and the level3 plane with x and proj off their words
+FRONT_ODD = (((2, 5, 4, 37, 53), (1, 2, 3, 4)),
+             ((1, 3, 2, 300, 260), (1, 2, 3, 4)),
+             ((2, 4, 3, 13, 21), (2, 2)), ((2, 3, 5, 17, 30), (1, 2, 4)),
+             ((2, 3, 4, 24, 36), (1, 2, 4, 8)),
+             ((2, 6, 4, 32, 60), (1, 2, 3, 4)))
+
+
+def front_odd_calls(dtype, gen):
+    calls = [(_rand(gen, (b, nin, h, w), 1.0, dtype),
+              _rand(gen, (b, n, h, w), 1.0, dtype),
+              eesp_branches.pack_taps(_he_taps(gen, len(d), n)), d)
+             for (b, nin, n, h, w), d in FRONT_ODD]
+    x, proj, taps, d = calls[-1]
+    calls[-1] = (_misaligned(x), _misaligned(proj), taps, d)
+    return calls
+
+
+def check_front(gen):
+    """The DownSampler front against its plain version, pool and branches
+    (fp32 within 1e-5 + rtol 1e-5, bf16 within one bf16 rounding) at the
+    main path's calls and FRONT_ODD; every odd plan's shape is printed.
+    Then its backward: gradients of x, proj and the taps through
+    `_DownFront` (the kernels forward, the plain version's VJP backward)
+    against autograd through the plain version, f32 at batch 2 at each
+    level and at FRONT_ODD, within 1e-5 of the largest gradient.  Returns
+    the largest bf16 error and the largest gradient gap."""
+    err16 = check_elementwise(
+        _flat_outputs(eesp_branches.down_front),
+        _flat_outputs(eesp_branches.down_front_plain),
+        with_odd(front_calls, front_odd_calls), gen, 1e-5, "down_front",
+        rtol32=1e-5)
+    gap = 0.0
+    for x, proj, taps, d in (front_calls(2, torch.float32, gen)[:3]
+                             + front_odd_calls(torch.float32, gen)):
+        grads = []
+        for fn in (eesp_branches.down_front, eesp_branches.down_front_plain):
+            leaves = [t.detach().clone().requires_grad_() for t in
+                      (x, proj, taps)]
+            pool, out = fn(*leaves, d)
+            gen_cot = torch.Generator(device="cuda").manual_seed(SEED + 7)
+            loss = ((pool * torch.randn(pool.shape, generator=gen_cot,
+                                        device="cuda")).sum()
+                    + (out * torch.randn(out.shape, generator=gen_cot,
+                                         device="cuda")).sum())
+            grads.append(torch.autograd.grad(loss, leaves))
+        for name, g, want in zip(("x", "proj", "taps"), *grads):
+            top = want.abs().max().item()
+            gap = max(gap, check_close(f"down_front backward d{name} "
+                                       f"{tuple(x.shape)}", g, want,
+                                       atol=1e-5 * max(1.0, top)))
+    return err16, gap
 
 
 _stage_params_cache = {}
@@ -583,6 +663,52 @@ def check_stage(gen):
     return err16, top_rms
 
 
+# the stride-1 stages of a 512x1024 image (Cityscapes' size in the
+# registry): level3 64x128 and level4 32x64, too wide for a full-width row
+# band of the fused stage's kernel in f32 (its tiling takes column bands);
+# in bf16 level3 still takes full-width bands
+WIDE_STAGES = ((64, 128), (32, 64))
+
+
+def check_stage_wide(gen):
+    """The fused stage at WIDE_STAGES in f32 at batch 2 (one source's
+    units) against its plain version at check_stage's fp32 tolerance,
+    then level3's three units timed at batch 8 in f32 (column bands) and
+    bf16 (full-width bands) beside their bounds.  Returns a line."""
+    parts = []
+    units = stage_units(0)
+    for (c, r_lim, _, _, _), blocks, (h, w) in zip(STAGES, units,
+                                                   WIDE_STAGES):
+        d = branch_dilations(4, r_lim)
+        x = _rand(gen, (2, c, h, w), 1.0, torch.float32)
+        got = eesp_stage.eesp_stage_fused_eval(x, blocks, d)
+        want = eesp_stage.eesp_stage_fused_eval_plain(x, blocks, d)
+        rms = want.float().pow(2).mean().sqrt().item()
+        err = check_close(f"eesp_stage fp32 {h}x{w}", got, want,
+                          atol=5e-4 * max(1.0, rms), rtol=5e-4)
+        t = eesp_stage._tiling(h, w, c // 4, c, 4, max(d), 4,
+                               int(blocks[0]["g_proj"]),
+                               blocks[0]["ew"].dim() == 3)
+        parts.append(f"{h}x{w} C={c} f32 max |err| {err:.3g} (rms "
+                     f"{rms:.3g}; tiles {t.th}x{t.tw}, chunk {t.pc})")
+    (c, r_lim, _, _, _), blocks, (h, w) = STAGES[0], units[0], WIDE_STAGES[0]
+    d = branch_dilations(4, r_lim)
+    times = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _rand(gen, (8, c, h, w), 1.0, dtype)
+        ms = min(time_ms(lambda: eesp_stage.eesp_stage_fused_eval(
+            x, blocks, d)) for _ in "ab")
+        b_ms = bound(*stage_work([(x, blocks, d)]))[0]
+        t = eesp_stage._tiling(h, w, c // 4, c, 4, max(d), x.element_size(),
+                               int(blocks[0]["g_proj"]),
+                               blocks[0]["ew"].dim() == 3)
+        times.append(f"{dtype} {ms:.3f} ms (bound {b_ms:.3f}; tiles "
+                     f"{t.th}x{t.tw})")
+        del x
+    return ("eesp_stage at 512x1024's planes: " + "; ".join(parts)
+            + f" | level3's 3 units at batch 8: " + ", ".join(times))
+
+
 def pm_calls(b, dtype, gen, hw=HW):
     return [([_rand(gen, (b, *hw, c), 2.0, dtype) for _, c in SOURCES],)]
 
@@ -662,6 +788,90 @@ def check_pm(gen):
             if dtype in (torch.bfloat16, "mixed"):
                 err16[dtype] = max(err16.get(dtype, 0.0), err)
     return err16
+
+
+# ensembles past the main path's 3 models, (channels, dtype) a model: 5 (a
+# round with 4 sources: 4 bf16 sources and the f32 3-class target model)
+# and 8 (the kernels' limit, f32; the pixel-major pass also at 8 f32 models
+# of 32 classes, whose runs stage 128 KB a warp, one warp a block)
+MANY = (tuple((c, "bf16") for c in (11, 19, 5, 11)) + ((3, "f32"),),
+        tuple((c, "f32") for c in (11, 19, 5, 11, 19, 5, 11, 19)),
+        tuple((32, "f32") for _ in range(8)))
+
+
+def _many_table(c: int, rng) -> np.ndarray:
+    """A model's table into 3 target classes: the source's own where the
+    registry has one of c classes, the identity for the target model,
+    random (Dirichlet rows) else."""
+    names = {c: n for n, c in SOURCES}
+    if c in names:
+        return label_conversion_matrix(names[c])
+    if c == 3:
+        return identity_table()
+    return rng.dirichlet(np.ones(4), c).astype(np.float32)
+
+
+def check_many_models(gen):
+    """Both fused passes at MANY's ensembles (soft/prob and hard/entropy,
+    at 4 x 64x96 and at the odd PSEUDO_ODD) against their plain versions
+    (confidences within 1e-5, labels equal where decided), and 9 models
+    refused with ValueError naming the limit.  Returns a line."""
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}
+    kc = torch.full((3,), KC, device="cuda")
+    errs = {}
+    for models in MANY:
+        n = len(models)
+        rng = np.random.default_rng(SEED + n)
+        convs = [_many_table(c, rng) for c, _ in models]
+        for b, hw in ((4, (64, 96)), PSEUDO_ODD):
+            cm = [_rand(gen, (b, c, *hw), 2.0, dt[t]) for c, t in models]
+            for mode, conf_mode in (("soft", "prob"), ("hard", "entropy")):
+                for name, kern, plain, logits in (
+                        ("fused_pseudo_cm", pseudo_cm.fused_pseudo_cm,
+                         pseudo_cm.fused_pseudo_cm_plain, cm),
+                        ("fused_pseudo_pass_pm",
+                         lambda *a, **k: pseudo.fused_pseudo_pass_pm(
+                             a[0], a[1], kc=a[2], **k),
+                         lambda *a, **k: pseudo.fused_pseudo_pass_plain(
+                             a[0], a[1], kc=a[2], **k),
+                         [x.permute(0, 2, 3, 1).contiguous() for x in cm])):
+                    got_l, got_c = kern(logits, convs, kc, mode=mode,
+                                        conf_mode=conf_mode)
+                    want_l, want_c = plain(logits, convs, kc, mode=mode,
+                                           conf_mode=conf_mode)
+                    tag = (f"{name} {n} models {mode}/{conf_mode} "
+                           f"{b}x{hw}")
+                    err = check_close(tag, got_c, want_c, atol=1e-5)
+                    decided = _pseudo_decided(cm, convs, mode, kc, want_c,
+                                              want_l)
+                    bad = int(((got_l != want_l) & decided).sum())
+                    if bad or decided.float().mean() < 0.99:
+                        raise AssertionError(
+                            f"{tag}: {bad} decided labels differ "
+                            f"({decided.float().mean():.4f} decided)")
+                    key = f"{name} {n} models"
+                    errs[key] = max(errs.get(key, 0.0), err)
+    nine = [_rand(gen, (1, 5, 8, 8), 2.0, torch.float32) for _ in range(9)]
+    tabs = [label_conversion_matrix("forest")] * 9
+    for name, call in (
+            ("fused_pseudo_cm", lambda: pseudo_cm.fused_pseudo_cm(
+                nine, tabs, kc)),
+            ("fused_pseudo_pass_pm", lambda: pseudo.fused_pseudo_pass_pm(
+                [x.permute(0, 2, 3, 1).contiguous() for x in nine], tabs,
+                kc=kc))):
+        try:
+            call()
+        except ValueError as e:
+            if str(pseudo_cm.MAX_MODELS) not in str(e):
+                raise AssertionError(f"{name}: 9 models raised {e!r} "
+                                     "without the limit") from e
+        else:
+            raise AssertionError(f"{name}: 9 models did not raise")
+    return ("ensembles of " + ", ".join(
+        "+".join(f"{c}{t}" for c, t in m) for m in MANY)
+        + " models: max |conf err| " + ", ".join(
+        f"{k} {v:.3g}" for k, v in errs.items())
+        + "; 9 models raise ValueError")
 
 
 # --- operation and byte counts of one main-path batch (batch 128, bf16) ---
@@ -828,12 +1038,11 @@ def phase_kernels():
         eesp_branches.eesp_branches, eesp_branches.eesp_branches_plain,
         with_odd(eesp_calls, eesp_odd_calls), gen, 1e-5, "eesp_branches",
         rtol32=1e-5)
-    err16["down_front"] = check_elementwise(
-        _flat_outputs(eesp_branches.down_front),
-        _flat_outputs(eesp_branches.down_front_plain), front_calls, gen,
-        1e-5, "down_front", rtol32=1e-5)
+    err16["down_front"], front_gap = check_front(gen)
     err16["eesp_stage_fused_eval"], stage_rms = check_stage(gen)
+    wide = check_stage_wide(gen)
     pm_errs = check_pm(gen)
+    many = check_many_models(gen)
     err16["fused_pseudo_pass_pm"] = pm_errs[torch.bfloat16]
     mixed_err = {"fused_pseudo_cm": errs["mixed"],
                  "fused_pseudo_pass_pm": pm_errs["mixed"]}
@@ -846,6 +1055,8 @@ def phase_kernels():
           "rounding (EESP stage: units + 1 roundings of |want| and of the "
           f"rms; its outputs' rms up to {stage_rms:.4g}) | bf16 max |err| "
           + ", ".join(f"{k} {v:.3g}" for k, v in err16.items())
+          + f" | down_front backward (f32) max gradient gap {front_gap:.3g}"
+          + " | " + wide + " | " + many
           + " | mixed ensemble (3 bf16 sources + 1 f32 3-class model, "
           f"batch {ROUND_BATCH}, every fusion and confidence; the fused pass "
           "also at the odd shape) max |conf err| " + ", ".join(
@@ -927,6 +1138,17 @@ def phase_kernels():
                   f"concat, as layers/eesp.py runs it; several calls, so no "
                   f"library row): kernel {k_ms:.3f} ms, cuDNN stack "
                   f"{c_ms:.3f} ms", flush=True)
+            del dw
+        if name == "down_front":
+            dw = [(x, p, dw_kernels(wts, d, x.dtype), d)
+                  for x, p, wts, d in calls]
+            c_ms = time_ms(lambda: [cudnn_front(*a) for a in dw])
+            print(f"phase 3 time down_front beside the default route's "
+                  f"strided front on the same {len(calls)} calls (bf16, "
+                  f"batch {BATCH}; F.avg_pool2d and K strided depthwise "
+                  f"F.conv2d, the HFF adds and the concat, as layers/eesp.py "
+                  f"runs it; several calls, so no library row): kernel "
+                  f"{k_ms:.3f} ms, cuDNN stack {c_ms:.3f} ms", flush=True)
             del dw
         del calls
     return rows
@@ -1042,7 +1264,7 @@ def breakdown(gen, imgs_u8):
 PORT_KERNELS = ("pseudo_cm_kernel", "pseudo_pm_kernel", "pyr_tail_kernel",
                 "down_prepass_kernel", "pyr_branches_kernel",
                 "resize_rows_kernel", "eesp_unit_kernel", "eesp_stack_kernel",
-                "branches_kernel")
+                "front_stack_kernel", "front_pool_kernel")
 
 
 def profile_sweep(sweep, n_images: int, out_dir: str,
@@ -1344,7 +1566,7 @@ def train_state(model, cw):
     model = copy.deepcopy(model).cuda()
     sched = build_schedule("hybrid", 0.009, TRAIN_STEPS)
     return (create_train_state(model, "sgd", sched),
-            make_train_step(model, class_weights=cw))
+            make_train_step(model, class_weights=cw, augment=False))
 
 
 def param_gaps(pa, pb, before):

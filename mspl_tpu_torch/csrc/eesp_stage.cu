@@ -39,7 +39,11 @@
 // band of `th` full-width output rows, and recomputes the proj over the
 // band plus its halo rows, keeping the proj output y in shared memory in
 // the working dtype (the point where this kernel and the plain version
-// round).  Shared memory: [z hi | z lo] bf16 [zrows][pc + 8] | one 16x16
+// round).  Where not even one full-width row band fits (planes of 128
+// columns and more in f32, 256 in bf16: a 512x1024 image's level3 and
+// level4), a block takes th x tw outputs (grid z: column bands) and its
+// halo band carries dmax columns each side too; the wrapper's `_tiling`
+// picks the bands, full width wherever that fits.  Shared memory: [z hi | z lo] bf16 [zrows][pc + 8] | one 16x16
 // f32 scratch tile a warp | y [n][ys_cap] in the working dtype.
 //  1. proj: the halo band is taken in windows of `pp` pixels; each window
 //     of x is staged (16-byte loads where aligned) into the z region as
@@ -102,6 +106,7 @@ struct StageArgs {
   int g_proj;        // proj groups
   int grouped;       // expand: 1 = per-branch n -> n, 0 = dense C -> C
   int th;            // output rows per block
+  int tw;            // output columns per block (W: full-width bands)
   int pc;            // output pixels per chunk (a multiple of 16)
   int pp;            // halo-band pixels per proj window (a multiple of 16)
   int ys_cap;        // pixels per channel of the staged proj output
@@ -232,11 +237,15 @@ eesp_unit_kernel(const __grid_constant__ StageArgs a) {
   float* scratch = reinterpret_cast<float*>(z_lo + (size_t)a.zrows * ldz);
   T* ys = reinterpret_cast<T*>(scratch + NWARP * 256);  // [n][ys_cap]
   float* scr = scratch + (threadIdx.x >> 5) * 256;
-  const int r0 = blockIdx.x * a.th;
-  const int r1 = min(H, r0 + a.th);
+  // the block's outputs: rows r0..r1, columns c0..c1; its halo band:
+  // rows h0..h1, columns x0..x0+bw (dmax each side, cut at the edges)
+  const int r0 = blockIdx.x * a.th, r1 = min(H, r0 + a.th);
+  const int c0 = blockIdx.z * a.tw, c1 = min(W, c0 + a.tw);
   const int h0 = max(0, r0 - a.dmax), h1 = min(H, r1 + a.dmax);
-  const int ph = (h1 - h0) * W;  // halo band pixels
-  const int po = (r1 - r0) * W;  // output band pixels
+  const int x0 = max(0, c0 - a.dmax), bw = min(W, c1 + a.dmax) - x0;
+  const int ow = c1 - c0;
+  const int ph = (h1 - h0) * bw;  // halo band pixels
+  const int po = (r1 - r0) * ow;  // output band pixels
   const int64_t hw = (int64_t)H * W;
   const T* xb = reinterpret_cast<const T*>(a.x) + (int64_t)blockIdx.y * C * hw;
   T* ob = reinterpret_cast<T*>(a.out) + (int64_t)blockIdx.y * C * hw;
@@ -265,7 +274,14 @@ eesp_unit_kernel(const __grid_constant__ StageArgs a) {
     const int ldp = a.pp + LD_PAD, prows = gp * cin_p;
     bf16* s_hi = z_hi;  // [prows][ldp], aliasing the z region
     bf16* s_lo = s_hi + (size_t)prows * ldp;
-    const T* xs = xb + (int64_t)h0 * W;
+    const T* xs = xb + (int64_t)h0 * W + x0;
+    // halo-band pixel p's offset from xs: p itself where the band takes
+    // full rows of the plane
+    auto band_off = [&](int p) -> int64_t {
+      if (bw == W) return p;
+      const int py = p / bw;
+      return (int64_t)py * W + (p - py * bw);
+    };
     const int per_row = a.pp / 8, items = prows * per_row;
     const int lane = threadIdx.x & 31;
     for (int w0 = 0; w0 < ph; w0 += a.pp) {
@@ -280,8 +296,12 @@ eesp_unit_kernel(const __grid_constant__ StageArgs a) {
             const int e = e0 + u * NT, r = e / per_row;
             const int j = (e - r * per_row) * 8, g = r / cin_p;
             const int i = r - g * cin_p;
-            const T* src = xs + (int64_t)(g * cin_g + i) * hw + w0 + j;
-            if (e < items && i < cin_g && j + 8 <= wn &&
+            const T* xc = xs + (int64_t)(g * cin_g + i) * hw;
+            const int p = w0 + j;
+            const T* src = xc + band_off(p);
+            // the 8 pixels lie in one band row where the band is narrower
+            const bool row = bw == W || p % bw + 8 <= bw;
+            if (e < items && i < cin_g && j + 8 <= wn && row &&
                 !(reinterpret_cast<uintptr_t>(src) & 15)) {
 #pragma unroll
               for (int h = 0; h < Pix8<T>::NQ; ++h)
@@ -290,7 +310,7 @@ eesp_unit_kernel(const __grid_constant__ StageArgs a) {
 #pragma unroll
               for (int m = 0; m < 8; ++m)
                 raw[u].t[m] = (e < items && i < cin_g && j + m < wn)
-                    ? src[m] : from_f32<T>(0.f);
+                    ? xc[band_off(p + m)] : from_f32<T>(0.f);
             }
           }
 #pragma unroll
@@ -357,7 +377,7 @@ eesp_unit_kernel(const __grid_constant__ StageArgs a) {
         }
         continue;
       }
-      const int yy = r0 + q / W, xx = q % W;
+      const int yy = r0 + q / ow, xx = c0 + q % ow;
       const T* yc = ys + (size_t)ch * a.ys_cap;
       float hff = 0.f;
       for (int kk = 0; kk < K; ++kk) {
@@ -368,12 +388,12 @@ eesp_unit_kernel(const __grid_constant__ StageArgs a) {
         for (int ky = 0; ky < 3; ++ky) {
           const int sy = yy + (ky - 1) * d;
           if (sy < 0 || sy >= H) continue;
-          const T* yrow = yc + (sy - h0) * W;
+          const T* yrow = yc + (sy - h0) * bw;
 #pragma unroll
           for (int kx = 0; kx < 3; ++kx) {
             const int sx = xx + (kx - 1) * d;
             if (sx < 0 || sx >= W) continue;
-            s += tk[(ky * 3 + kx) * n] * to_f32(yrow[sx]);
+            s += tk[(ky * 3 + kx) * n] * to_f32(yrow[sx - x0]);
           }
         }
         hff += s;
@@ -391,7 +411,9 @@ eesp_unit_kernel(const __grid_constant__ StageArgs a) {
           ge, ni_p, ni_p, (min(a.pc, po - q0) + 15) / 16, ew_hi, ew_lo, z_hi,
           z_lo, ldz, scr, [&](int g, int m0, int j0, const float* v) {
             const int lane = threadIdx.x & 31, q = q0 + j0 + (lane & 15);
-            const int64_t at0 = (int64_t)r0 * W + q;
+            const int64_t at0 =
+                ow == W ? (int64_t)r0 * W + q
+                        : (int64_t)(r0 + q / ow) * W + c0 + q % ow;
             float res[8];
 #pragma unroll
             for (int u = 0; u < 8; ++u) {
@@ -427,7 +449,7 @@ static int launch_typed(const StageArgs& a, int smem, cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
       eesp_unit_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((a.h + a.th - 1) / a.th, a.b);
+  dim3 grid((a.h + a.th - 1) / a.th, a.b, (a.w + a.tw - 1) / a.tw);
   eesp_unit_kernel<T><<<grid, NT, smem, st>>>(a);
   return 0;
 }
@@ -435,10 +457,11 @@ static int launch_typed(const StageArgs& a, int smem, cudaStream_t st) {
 extern "C" int eesp_unit_launch(
     const void* x, void* out, const float* prm, const void* mma, int dtype,
     int b, int c, int n, int k, int h, int w, int g_proj, int grouped,
-    int th, int pc, int pp, int ys_cap, int zrows, int smem, const int* dil,
-    void* stream) {
+    int th, int tw, int pc, int pp, int ys_cap, int zrows, int smem,
+    const int* dil, void* stream) {
   if (k < 1 || k > MAX_K || c != n * k || g_proj < 1 || c % g_proj ||
-      n % g_proj || pc < 16 || pc % 16 || pp < 16 || pp % 16 || th < 1)
+      n % g_proj || pc < 16 || pc % 16 || pp < 16 || pp % 16 || th < 1 ||
+      tw < 1 || tw > w)
     return (int)cudaErrorInvalidValue;
   StageArgs a;
   a.x = x;
@@ -454,6 +477,7 @@ extern "C" int eesp_unit_launch(
   a.g_proj = g_proj;
   a.grouped = grouped;
   a.th = th;
+  a.tw = tw;
   a.pc = pc;
   a.pp = pp;
   a.ys_cap = ys_cap;

@@ -44,12 +44,15 @@
 // compiled side by side: the mixed ones hold twice the code.  Where a
 // plane's pixel count is not a multiple of 4, its planes do not start on
 // an 8-byte word: the VEC=false instance loads and stores element by
-// element and masks the plane's end.
+// element and masks the plane's end.  An ensemble holds up to MAX_MODELS =
+// 8 models (the JAX kernel takes any number): the host passes the models'
+// pointers, channels and widths as arrays, and the tables of 8 models of 32
+// classes fill 8 KB of static shared memory at 8 columns.
 #pragma once
 
 #include "common.cuh"
 
-#define MAX_MODELS 4
+#define MAX_MODELS 8
 #define MAX_C 32
 #define MAX_T1 8
 #define PC_NT 256  // threads of a block
@@ -355,16 +358,15 @@ static void launch_dt(const PseudoArgs& a, int b, int t1_inst, int vec,
 }
 
 // The C interface of both libraries (pseudo_cm.cu for single-dtype
-// ensembles, pseudo_cm_mixed.cu for mixed ones): logits l0..l3
-// [B, C_m, H, W] (n_models of them; bit m of bf16_mask set: model m's are
-// bf16, else f32), c0..c3 their channels and w0..w3 their register widths
-// (multiples of 4 from C_m up to 32), tables and kc as above, hw = H*W;
-// t1_inst the tables' padded width (4 or 8, >= T+1); vec: one vector load
-// a channel (hw a multiple of 4, every pointer on a 16-byte word).  Writes
-// label int32 and conf f32 [B, H, W].
+// ensembles, pseudo_cm_mixed.cu for mixed ones): logits[0..n_models)
+// [B, C_m, H, W] (bit m of bf16_mask set: model m's are bf16, else f32),
+// cs their channels and ws their register widths (multiples of 4 from C_m
+// up to 32), host arrays of n_models entries; tables and kc as above,
+// hw = H*W; t1_inst the tables' padded width (4 or 8, >= T+1); vec: one
+// vector load a channel (hw a multiple of 4, every pointer on a 16-byte
+// word).  Writes label int32 and conf f32 [B, H, W].
 #define PSEUDO_CM_PARAMS                                                     \
-  const void *l0, const void *l1, const void *l2, const void *l3, int c0,    \
-      int c1, int c2, int c3, int w0, int w1, int w2, int w3, int n_models,  \
+  const void *const *logits, const int *cs, const int *ws, int n_models,    \
       const float *tables, const float *kc, int t, long long hw, int b,      \
       int bf16_mask, int hard, int entropy, float min_agree, int ignore,     \
       float inv_log, int t1_inst, int vec, void *out_label, void *out_conf, \
@@ -373,19 +375,17 @@ static void launch_dt(const PseudoArgs& a, int b, int t1_inst, int vec,
 // The arguments checked and packed into `a`; returns a CUDA error code, 0
 // when the entry may launch.
 static int pack_args(PseudoArgs& a, PSEUDO_CM_PARAMS) {
-  const void* ls[MAX_MODELS] = {l0, l1, l2, l3};
-  const int cs[MAX_MODELS] = {c0, c1, c2, c3};
-  const int ws[MAX_MODELS] = {w0, w1, w2, w3};
   if (n_models < 1 || n_models > MAX_MODELS || b > 65535 ||
       (t1_inst != 4 && t1_inst != 8) || t + 1 > t1_inst ||
       (vec && hw % VP != 0))
     return (int)cudaErrorInvalidValue;
   for (int m = 0; m < MAX_MODELS; ++m) {
-    a.logits[m] = ls[m];
-    a.c[m] = cs[m];
-    a.width[m] = ws[m];
-    if (m < n_models && (cs[m] < 1 || ws[m] < cs[m] || ws[m] % 4 != 0 ||
-                         ws[m] > MAX_C))
+    const bool in = m < n_models;
+    a.logits[m] = in ? logits[m] : nullptr;
+    a.c[m] = in ? cs[m] : 0;
+    a.width[m] = in ? ws[m] : 0;
+    if (in && (cs[m] < 1 || ws[m] < cs[m] || ws[m] % 4 != 0 ||
+               ws[m] > MAX_C))
       return (int)cudaErrorInvalidValue;
   }
   a.n_models = n_models;
@@ -406,6 +406,5 @@ static int pack_args(PseudoArgs& a, PSEUDO_CM_PARAMS) {
 }
 
 #define PSEUDO_CM_ARGS                                                       \
-  l0, l1, l2, l3, c0, c1, c2, c3, w0, w1, w2, w3, n_models, tables, kc, t,   \
-      hw, b, bf16_mask, hard, entropy, min_agree, ignore, inv_log, t1_inst,  \
-      vec, out_label, out_conf, stream
+  logits, cs, ws, n_models, tables, kc, t, hw, b, bf16_mask, hard, entropy,  \
+      min_agree, ignore, inv_log, t1_inst, vec, out_label, out_conf, stream

@@ -49,10 +49,12 @@
 // PERF.md).  The other candidate, each thread's 4 consecutive pixels loaded
 // straight into registers with C_m fixed at compile time (one instance for
 // every channel count), read 0.548 ms against this design's 0.527 in the same
-// run, and was dropped.
+// run, and was dropped.  An ensemble holds up to MAX_MODELS = 8 models (the
+// JAX kernel takes any number), passed as arrays: 8 f32 models of 32
+// classes stage 128 KB a warp, and the plan then takes one warp a block.
 #include "common.cuh"
 
-#define MAX_MODELS 4
+#define MAX_MODELS 8
 #define MAX_C 32
 #define MAX_T1 8
 #define PM_RUN 128  // pixels a warp
@@ -329,38 +331,38 @@ static int launch_typed(const PmArgs& a, int warps, int vec,
   return 0;
 }
 
-// logits l0..l3 [B, H, W, C_m] (n_models of them; bit m of bf16_mask set:
-// model m's are bf16, else f32), c0..c3 their channels; the plan
-// (ops/pseudo.py pm_plan): o0..o3 each model's byte offset in a warp's
-// stage, wbytes the stage's bytes, warps a block, t1_inst the tables'
-// padded width (4 or 8, >= T+1), vec: 16-byte copies (every logit tensor on
-// a 16-byte word).  Writes label int32 and conf f32 [B, H, W].
+// logits[0..n_models) [B, H, W, C_m] (bit m of bf16_mask set: model m's
+// are bf16, else f32), cs their channels; the plan (ops/pseudo.py pm_plan):
+// offs each model's byte offset in a warp's stage (cs and offs host arrays
+// of n_models entries), wbytes the stage's bytes, warps a block, t1_inst
+// the tables' padded width (4 or 8, >= T+1), vec: 16-byte copies (every
+// logit tensor on a 16-byte word).  Writes label int32 and conf f32
+// [B, H, W].  The block's shared memory, the stages and the static tables
+// of MAX_MODELS models, stays within the card's 227 KB: 8 f32 models of 32
+// classes stage 128 KB a warp, at one warp a block.
 extern "C" int pseudo_pm_launch(
-    const void* l0, const void* l1, const void* l2, const void* l3,
-    int c0, int c1, int c2, int c3, int n_models, const float* tables,
-    const float* kc, int has_kc, int t, long long total, int bf16_mask,
-    int hard, int entropy, float min_agree, int ignore, float inv_log,
-    int o0, int o1, int o2, int o3, int wbytes, int warps, int t1_inst,
+    const void* const* logits, const int* cs, int n_models,
+    const float* tables, const float* kc, int has_kc, int t, long long total,
+    int bf16_mask, int hard, int entropy, float min_agree, int ignore,
+    float inv_log, const int* offs, int wbytes, int warps, int t1_inst,
     int vec, void* out_label, void* out_conf, void* stream) {
   PmArgs a;
-  const void* ls[MAX_MODELS] = {l0, l1, l2, l3};
-  const int cs[MAX_MODELS] = {c0, c1, c2, c3};
-  const int os[MAX_MODELS] = {o0, o1, o2, o3};
   if (n_models < 1 || n_models > MAX_MODELS || warps < 1 ||
       warps > MAX_WARPS || (t1_inst != 4 && t1_inst != 8) ||
       t + 1 > t1_inst || wbytes % 16 ||
-      warps * wbytes + 4 * (MAX_MODELS * MAX_C * t1_inst + MAX_T1) >
+      (int64_t)warps * wbytes + 4 * (MAX_MODELS * MAX_C * t1_inst + MAX_T1) >
           227 * 1024)
     return (int)cudaErrorInvalidValue;
   a.bf16 = bf16_mask & ((1 << n_models) - 1);
   for (int m = 0; m < MAX_MODELS; ++m) {
-    a.logits[m] = ls[m];
-    a.c[m] = cs[m];
-    a.soff[m] = os[m];
-    if (m < n_models) {
+    const bool in = m < n_models;
+    a.logits[m] = in ? logits[m] : nullptr;
+    a.c[m] = in ? cs[m] : 0;
+    a.soff[m] = in ? offs[m] : 0;
+    if (in) {
       const int es = (a.bf16 >> m) & 1 ? 2 : 4;
-      if (cs[m] < 1 || cs[m] > MAX_C || os[m] % 16 ||
-          os[m] + PM_RUN * cs[m] * es > wbytes)
+      if (cs[m] < 1 || cs[m] > MAX_C || offs[m] % 16 ||
+          offs[m] + PM_RUN * cs[m] * es > wbytes)
         return (int)cudaErrorInvalidValue;
     }
   }

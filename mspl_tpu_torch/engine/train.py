@@ -91,27 +91,41 @@ def _on(batch: Dict, key: str, device: torch.device):
     return None if v is None else torch.as_tensor(v).to(device)
 
 
+def _norm_kw(mean, std) -> Dict:
+    """`normalize`'s statistics where the caller gives them, as the
+    reference's steps pass them."""
+    kw = {}
+    if mean is not None:
+        kw["mean"] = mean
+    if std is not None:
+        kw["std"] = std
+    return kw
+
+
 def step_generator(seed: int, step: int) -> torch.Generator:
     """The CPU generator of global step `step` of a run seeded `seed`."""
     return torch.Generator().manual_seed(seed * 2 ** 32 + step)
 
 
-def make_train_step(model: nn.Module, class_weights=None,
-                    reg_mode: str = "none", reg_weight: float = 0.0,
-                    augment: bool = False,
+def make_train_step(model: nn.Module,
                     crop_hw: Optional[Tuple[int, int]] = None,
                     scale_range: Tuple[float, float] = (0.5, 2.0),
-                    device="cuda"):
+                    class_weights=None, reg_mode: str = "none",
+                    reg_weight: float = 0.0, augment: bool = True,
+                    mean=None, std=None, *, device="cuda"):
     """Returns `step(state, batch, rng=None) -> (state, {"loss"})` for
-    `model`, which moves to `device`.
+    `model`, which moves to `device`.  The parameters, their order and
+    their defaults are the reference's, less its JAX-only `remat`,
+    `bn_groups`, `donate` and `packer`.
 
     `batch`: "image" uint8 [B, H, W, C], "label" [B, H, W] and optionally
     "valid" [B] (rows that count), numpy arrays or tensors on any device.
     With `augment`, the step crops to `crop_hw` at scales in `scale_range`
     with draws from `rng` (a torch.Generator; by default
-    `step_generator(0, state.step)`).  The loss is the segmentation loss
-    over the model's channel-major logits; the returned loss is a 0-d f32
-    tensor on `device`."""
+    `step_generator(0, state.step)`).  `mean`/`std` replace the ImageNet
+    statistics of `normalize` where given.  The loss is the segmentation
+    loss over the model's channel-major logits; the returned loss is a 0-d
+    f32 tensor on `device`."""
     if augment and crop_hw is None:
         raise ValueError("augment=True needs crop_hw")
     device = torch.device(device)
@@ -119,6 +133,7 @@ def make_train_step(model: nn.Module, class_weights=None,
     cw = (None if class_weights is None else
           torch.as_tensor(np.asarray(class_weights, np.float32),
                           device=device))
+    norm_kw = _norm_kw(mean, std)
 
     def step(state: TrainState, batch: Dict,
              rng: Optional[torch.Generator] = None):
@@ -131,9 +146,9 @@ def make_train_step(model: nn.Module, class_weights=None,
             imgs, labels = train_transform(
                 imgs, labels, crop_hw,
                 rng if rng is not None else step_generator(0, state.step),
-                scale_range)
+                scale_range, **norm_kw)
         else:
-            imgs = normalize(imgs)
+            imgs = normalize(imgs, **norm_kw)
         logits = model(imgs)
         loss = segmentation_loss(
             logits, labels, class_weights=cw, reg_mode=reg_mode,
@@ -150,17 +165,20 @@ def make_train_step(model: nn.Module, class_weights=None,
     return step
 
 
-def make_eval_step(model: nn.Module, num_classes: int, device="cuda"):
+def make_eval_step(model: nn.Module, num_classes: int, mean=None, std=None,
+                   *, device="cuda"):
     """Returns `step(batch) -> confusion matrix` (float32 [C, C] on
-    `device`, rows = ground truth) of `model`'s eval forward; the model
-    moves to `device`."""
+    `device`, rows = ground truth) of `model`'s eval forward, the batch
+    normalized with `mean`/`std` where given; the model moves to
+    `device`."""
     device = torch.device(device)
     model.to(device)
+    norm_kw = _norm_kw(mean, std)
 
     def step(batch: Dict) -> torch.Tensor:
         model.eval()
         with torch.inference_mode():
-            out = model(normalize(_on(batch, "image", device)))
+            out = model(normalize(_on(batch, "image", device), **norm_kw))
             return confusion_matrix(out.argmax(1), _on(batch, "label", device),
                                     num_classes,
                                     batch_mask=_on(batch, "valid", device))

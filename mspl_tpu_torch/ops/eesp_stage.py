@@ -150,6 +150,7 @@ class Tiling(NamedTuple):
     pp: int      # halo-band pixels a proj window (a multiple of 16)
     zrows: int   # rows of the staged product operands
     smem: int    # dynamic shared memory bytes a block
+    tw: int      # output columns a block (the plane's width: full rows)
 
 
 def _pad16(v: int) -> int:
@@ -170,31 +171,62 @@ def _smem_bytes(zrows: int, pc: int, n: int, cap: int, itemsize: int) -> int:
     return zrows * (pc + LD_PAD) * 4 + SCRATCH_BYTES + n * cap * itemsize
 
 
+def band_extent(size: int, t: int, dmax: int) -> int:
+    """The most positions a band of `t` outputs stages along an axis of
+    `size`, with its halo of `dmax` each side cut at the plane's edges."""
+    return max(min(size, r0 + t + dmax) - max(0, r0 - dmax)
+               for r0 in range(0, size, t))
+
+
 @functools.lru_cache(maxsize=None)
 def _tiling(h: int, w: int, n: int, c: int, k: int, dmax: int,
             itemsize: int, g_proj: int, grouped: bool) -> Tiling:
-    """The kernel's tiling: the fewest row bands whose staged proj output y
-    and a chunk of at least 16 pixels fit a block's shared memory, the
-    widest chunk (up to 128 pixels) beside them, and the widest proj window
-    whose staged input (bf16 hi, and lo for f32) fits the chunk's z region."""
+    """The kernel's tiling.  Full-width row bands where they fit: the
+    fewest whose staged proj output y and a chunk of at least 16 pixels
+    fit a block's shared memory.  Else blocks of th x tw outputs whose y
+    carries a halo of dmax columns each side too: of each count of column
+    bands, the fewest row bands that fit, and of those the tiling that
+    stages the fewest halo pixels in all (the proj each block recomputes),
+    then the fewest blocks.  Beside y, the widest chunk (up to 128 pixels)
+    and the widest proj window whose staged input (bf16 hi, and lo for
+    f32) fits the chunk's z region."""
     proj, exp = _products(c, n, k, g_proj, grouped)
     prows = proj[0] * proj[2]
     zrows = max(prows, exp[0] * exp[2])
     split = 2 if itemsize == 4 else 1
-    for bands in range(1, h + 1):
-        th = -(-h // bands)
-        rows = max(min(h, r0 + th + dmax) - max(0, r0 - dmax)
-                   for r0 in range(0, h, th))
-        cap = rows * w
+
+    def fit(th: int, tw: int):
+        cap = band_extent(h, th, dmax) * band_extent(w, tw, dmax)
         free = SMEM_BYTES - _smem_bytes(zrows, 0, n, cap, itemsize)
         pc = min(128, free // (zrows * 4) // 16 * 16)
-        if pc >= 16:
-            zbytes = zrows * (pc + LD_PAD) * 4
-            pp = (zbytes // (prows * 2 * split) - LD_PAD) // 16 * 16
-            return Tiling(th, cap, pc, min(pp, _pad16(cap)), zrows,
-                          _smem_bytes(zrows, pc, n, cap, itemsize))
-    raise ValueError(f"no tiling of a {h}x{w} plane with n={n}, C={c} fits "
-                     "shared memory")
+        if pc < 16:
+            return None
+        zbytes = zrows * (pc + LD_PAD) * 4
+        pp = (zbytes // (prows * 2 * split) - LD_PAD) // 16 * 16
+        return Tiling(th, cap, pc, min(pp, _pad16(cap)), zrows,
+                      _smem_bytes(zrows, pc, n, cap, itemsize), tw)
+
+    for bands in range(1, h + 1):
+        t = fit(-(-h // bands), w)
+        if t is not None:
+            return t
+    best, best_cost = None, None
+    for cbands in range(2, w + 1):
+        tw = -(-w // cbands)
+        for rbands in range(1, h + 1):
+            t = fit(-(-h // rbands), tw)
+            if t is not None:
+                blocks = -(-h // t.th) * -(-w // tw)
+                cost = (blocks * t.cap, blocks)
+                if best_cost is None or cost < best_cost:
+                    best, best_cost = t, cost
+                break
+        if best is not None and best.th == h:
+            break  # more column bands only widen the halo
+    if best is None:
+        raise ValueError(f"no tiling of a {h}x{w} plane with n={n}, C={c} "
+                         "fits shared memory")
+    return best
 
 
 def _operands(blk) -> List[torch.Tensor]:
@@ -279,8 +311,8 @@ def eesp_stage_fused_eval(x: torch.Tensor, blocks: List[Dict],
         err = lib.eesp_unit_launch(
             _cuda.ptr(cur), _cuda.ptr(out), _cuda.ptr(prm["f32"]),
             _cuda.ptr(prm["mma"]), 1 if x.dtype == torch.bfloat16 else 0, b,
-            c, n, k, h, w, g_proj, int(grouped), t.th, t.pc, t.pp, t.cap,
-            t.zrows, t.smem, dil, _cuda.stream(x))
+            c, n, k, h, w, g_proj, int(grouped), t.th, t.tw, t.pc, t.pp,
+            t.cap, t.zrows, t.smem, dil, _cuda.stream(x))
         _cuda.check(lib, err, "eesp_unit_launch")
         eesp_stage_fused_eval.launches += 1
         cur = out
@@ -295,6 +327,6 @@ def _lib():
     fn = lib.eesp_unit_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 4 + [ci] * 15 + [ctypes.POINTER(ci), vp]
+        fn.argtypes = [vp] * 4 + [ci] * 16 + [ctypes.POINTER(ci), vp]
         fn.restype = ci
     return lib

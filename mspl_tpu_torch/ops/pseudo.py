@@ -27,7 +27,7 @@ import torch
 
 from mspl_tpu_torch.ops import _cuda
 from mspl_tpu_torch.ops.pseudo_cm import (MAX_C, MAX_MODELS, MAX_T1,
-                                          _tables, bf16_mask)
+                                          _tables, bf16_mask, model_array)
 from mspl_tpu_torch.utils.registry import IGNORE_LABEL
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -201,18 +201,18 @@ def fused_pseudo_pass_pm(
     kc_t = (None if kc is None else torch.broadcast_to(torch.as_tensor(
         kc, dtype=torch.float32, device=dev), (n_t,)).contiguous())
     need = min_agree if min_agree is not None else (n // 2 + 1)
-    pad = [0] * (MAX_MODELS - n)
-    ptrs = [_cuda.ptr(x) for x in logits_list] + [None] * len(pad)
     cs = [int(c.shape[0]) for c in convs]
     plan = pm_plan(cs, [x.element_size() for x in logits_list], n_t,
                    all(x.data_ptr() % 16 == 0 for x in logits_list))
     lib = _lib()
+    ci = ctypes.c_int
     err = lib.pseudo_pm_launch(
-        *ptrs, *(cs + pad), n, _cuda.ptr(tables),
+        model_array(ctypes.c_void_p, [x.data_ptr() for x in logits_list]),
+        model_array(ci, cs), n, _cuda.ptr(tables),
         None if kc_t is None else _cuda.ptr(kc_t), int(kc_t is not None), n_t,
         label.numel(), bf16_mask(logits_list),
         int(mode == "hard"), int(conf_mode == "entropy"), float(need),
-        ignore_label, 1.0 / math.log(n_t + 1), *(list(plan.offsets) + pad),
+        ignore_label, 1.0 / math.log(n_t + 1), model_array(ci, plan.offsets),
         plan.wbytes, plan.warps, plan.t1, int(plan.vec), _cuda.ptr(label),
         _cuda.ptr(conf), _cuda.stream(x0))
     _cuda.check(lib, err, "pseudo_pm_launch")
@@ -228,12 +228,12 @@ def _lib():
     fn = lib.pseudo_pm_launch
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # logits, channels, N, tables, kc, has kc, T, B*H*W, bf16 mask, hard,
-        # entropy, min_agree, ignore, 1/ln(T+1), stage offsets, stage bytes,
-        # warps, T1 instance, vec, label, conf, stream
-        fn.argtypes = ([vp] * 4 + [ci] * 5 + [vp, vp, ci, ci,
-                                               ctypes.c_longlong, ci, ci, ci,
-                                               cf, ci, cf] + [ci] * 8
-                       + [vp, vp, vp])
+        # logits[N], channels[N], N, tables, kc, has kc, T, B*H*W, bf16 mask,
+        # hard, entropy, min_agree, ignore, 1/ln(T+1), stage offsets[N],
+        # stage bytes, warps, T1 instance, vec, label, conf, stream
+        ip = ctypes.POINTER(ci)
+        fn.argtypes = [ctypes.POINTER(vp), ip, ci, vp, vp, ci, ci,
+                       ctypes.c_longlong, ci, ci, ci, cf, ci, cf, ip, ci, ci,
+                       ci, ci, vp, vp, vp]
         fn.restype = ci
     return lib

@@ -16,12 +16,11 @@ models f32 or all bf16), `pseudo_cm_mixed.cu` the instances that read
 each model in its own dtype.
 
 Kernel limits, which the reference does not have (the plain version has
-none; on the card the wrapper raises): at most MAX_MODELS = 4 models,
-MAX_C = 32 source classes a model and MAX_T1 - 1 = 7 target classes; the
-pixel-major pass ⑧ (`ops/pseudo.py`) shares them.  A self-training round's
-ensemble, the three sources plus the target model, fills the 4 models
-exactly, so whoever picks the sources (the self-training slice, the CLI)
-must keep to them.  The pyramid-pool tail ② (`ops/pyrpool.py`) takes
+none; on the card the wrapper raises ValueError): at most MAX_MODELS = 8
+models, MAX_C = 32 source classes a model and MAX_T1 - 1 = 7 target
+classes; the pixel-major pass ⑧ (`ops/pseudo.py`) shares them.  A
+self-training round's ensemble is its sources plus the target model, so
+up to 7 sources fit.  The pyramid-pool tail ② (`ops/pyrpool.py`) takes
 P <= 16 and S <= 8.
 """
 
@@ -37,7 +36,7 @@ import torch
 from mspl_tpu_torch.ops import _cuda
 from mspl_tpu_torch.utils.registry import IGNORE_LABEL
 
-MAX_MODELS, MAX_C, MAX_T1 = 4, 32, 8
+MAX_MODELS, MAX_C, MAX_T1 = 8, 32, 8
 PIXELS_PER_THREAD = 4  # csrc/pseudo_cm.cuh VP: one 8- or 16-byte load
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -60,6 +59,12 @@ def bf16_mask(logits: Sequence[torch.Tensor]) -> int:
     logits are bf16 (else f32)."""
     return sum(1 << m for m, x in enumerate(logits)
                if x.dtype == torch.bfloat16)
+
+
+def model_array(ctype, values: Sequence):
+    """A ctypes array of one entry a model, as the launch entries of ①
+    and ⑧ take their models' pointers, channels, widths and offsets."""
+    return (ctype * len(values))(*values)
 
 
 def _check_args(logits_cm, conversions, mode, conf_mode):
@@ -209,12 +214,12 @@ def fused_pseudo_cm(
     aligned = all(t.data_ptr() % 16 == 0
                   for t in (*logits_cm, label, conf))
     widths, t1, vec = launch_plan(cs, n_t, h * w, aligned)
-    pad = [0] * (MAX_MODELS - n)
-    ptrs = [_cuda.ptr(x) for x in logits_cm] + [None] * len(pad)
     mask = bf16_mask(logits_cm)
     lib, launch = _lib(mixed=0 < mask < (1 << n) - 1)
     err = launch(
-        *ptrs, *(cs + pad), *(list(widths) + pad), n, _cuda.ptr(tables),
+        model_array(ctypes.c_void_p, [x.data_ptr() for x in logits_cm]),
+        model_array(ctypes.c_int, cs), model_array(ctypes.c_int, widths), n,
+        _cuda.ptr(tables),
         _cuda.ptr(kc_t), n_t, h * w, b, mask, int(mode == "hard"),
         int(conf_mode == "entropy"), float(need), ignore_label,
         1.0 / math.log(n_t + 1), t1, int(vec), _cuda.ptr(label),
@@ -236,13 +241,12 @@ def _lib(mixed: bool):
     fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        # logits, channels, widths, N, tables, kc, T, H*W, B, bf16 mask, hard,
-        # entropy, min_agree, ignore, 1/ln(T+1), T1 instance, vec, label,
-        # conf, stream
-        fn.argtypes = ([vp] * 4 + [ci] * 9 + [vp, vp, ci, ctypes.c_longlong,
-                                               ci, ci, ci, ci,
-                                               ctypes.c_float, ci,
-                                               ctypes.c_float, ci, ci, vp,
-                                               vp, vp])
+        # logits[N], channels[N], widths[N], N, tables, kc, T, H*W, B, bf16
+        # mask, hard, entropy, min_agree, ignore, 1/ln(T+1), T1 instance,
+        # vec, label, conf, stream
+        ip = ctypes.POINTER(ci)
+        fn.argtypes = [ctypes.POINTER(vp), ip, ip, ci, vp, vp, ci,
+                       ctypes.c_longlong, ci, ci, ci, ci, ctypes.c_float, ci,
+                       ctypes.c_float, ci, ci, vp, vp, vp]
         fn.restype = ci
     return lib, fn

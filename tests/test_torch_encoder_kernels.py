@@ -85,7 +85,8 @@ def test_down_front_matches_pallas(shape, dilations):
     want_pool, want_br = down_front_pallas(
         jnp.asarray(x), jnp.asarray(proj), jnp.asarray(wts), dilations,
         interpret=True)
-    pool, br = down_front(_nchw(x), _nchw(proj), _t(wts), dilations)
+    pool, br = down_front(_nchw(x), _nchw(proj), pack_taps(_t(wts)),
+                          dilations)
     h2, w2 = (h - 1) // 2 + 1, (w - 1) // 2 + 1
     assert pool.shape == (b, nin, h2, w2)
     assert br.shape == (b, len(dilations) * n, h2, w2)

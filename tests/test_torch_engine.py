@@ -260,7 +260,8 @@ def test_engine_entry_points_default_to_the_card(entry):
     `device="cpu"` keeps it there."""
     calls = {"state": lambda m, **kw: create_train_state(
                  m, "sgd", lambda s: 0.1, **kw),
-             "train_step": lambda m, **kw: make_train_step(m, **kw),
+             "train_step": lambda m, **kw: make_train_step(
+                 m, augment=False, **kw),
              "eval_step": lambda m, **kw: make_eval_step(m, 2, **kw)}
     model = torch.nn.Linear(1, 1)
     calls[entry](model, device="cpu")
@@ -327,3 +328,70 @@ def test_pyr_branches_function_grads_only_what_is_asked(branch_case,
     pyrpool._PyrBranches.apply(xt, wt, SCALES).backward(torch.from_numpy(g))
     assert wt.grad is None
     np.testing.assert_allclose(xt.grad.numpy(), want_gx, rtol=0, atol=1e-5)
+
+
+# the reference's parameters that only a JAX step has: activation
+# checkpointing and ghost-batch statistics (ROADMAP A.7), buffer donation
+# and the state packer (no counterpart in an eager port)
+JAX_ONLY = {"remat", "bn_groups", "donate", "packer"}
+
+
+@pytest.mark.parametrize("name", ["make_train_step", "make_eval_step"])
+def test_step_signatures_match_the_reference(name):
+    """The port's train and eval step makers take the reference's
+    parameters in the reference's order with its defaults (augment on,
+    crop_hw and scale_range before class_weights, mean/std), less the
+    JAX-only four, and then the port's own keyword-only `device`, which
+    defaults to the card."""
+    import inspect
+
+    from mspl_tpu.engine import train as ref
+    from mspl_tpu_torch.engine import train as port
+
+    want = [(p.name, p.default) for p in
+            inspect.signature(getattr(ref, name)).parameters.values()
+            if p.name not in JAX_ONLY]
+    params = inspect.signature(getattr(port, name)).parameters
+    got = [(p.name, p.default) for p in params.values() if p.name != "device"]
+    assert got == want
+    assert list(params)[-1] == "device"
+    assert params["device"].kind is inspect.Parameter.KEYWORD_ONLY
+    assert params["device"].default == "cuda"
+
+
+class _Recorder(torch.nn.Module):
+    """A 2-class 'model' that keeps the batch it is given: channel 0 of
+    its input, scaled by a weight, as both logits."""
+
+    def __init__(self):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.ones(()))
+        self.seen = None
+
+    def forward(self, x):
+        self.seen = x.detach().clone()
+        return torch.cat([x[:, :1], -x[:, :1]], dim=1) * self.w
+
+
+@pytest.mark.parametrize("step", ["train", "eval"])
+def test_steps_normalize_with_mean_and_std_as_the_reference(step):
+    """With a non-default mean/std, the batch a step hands the model is the
+    reference's `normalize(image, mean, std)` (NCHW here, NHWC there),
+    within f32 rounding; without them, ImageNet's statistics."""
+    from mspl_tpu.data.transforms import normalize as jax_normalize
+
+    rng = np.random.default_rng(4)
+    img = rng.integers(0, 256, (2, 6, 8, 3), dtype=np.uint8)
+    batch = {"image": img, "label": np.zeros((2, 6, 8), np.int32)}
+    for kw in ({"mean": (0.3, 0.4, 0.5), "std": (0.2, 0.25, 0.3)}, {}):
+        model = _Recorder()
+        if step == "train":
+            state = create_train_state(model, "sgd", lambda s: 0.1,
+                                       device="cpu")
+            make_train_step(model, augment=False, device="cpu",
+                            **kw)(state, batch)
+        else:
+            make_eval_step(model, 2, device="cpu", **kw)(batch)
+        want = np.asarray(jax_normalize(jnp.asarray(img), **kw))
+        np.testing.assert_allclose(model.seen.permute(0, 2, 3, 1).numpy(),
+                                   want, rtol=1e-6, atol=1e-6)

@@ -19,6 +19,7 @@ import torch
 
 from mspl_tpu.data.label_space import label_conversion_matrix
 from mspl_tpu.ops.pallas_pseudo import fused_pseudo_pass_pallas
+from mspl_tpu.pseudo.generate import fused_pseudo_pass
 from mspl_tpu_torch.ops import pseudo
 from mspl_tpu_torch.ops.pseudo import (MAX_WARPS, PIXELS_PER_LANE,
                                        RUN_PIXELS, STAGE_CAP, pm_plan)
@@ -184,3 +185,46 @@ def test_run_model_matches_pallas(mode, conf_mode, with_kc):
     np.testing.assert_allclose(plain_c.numpy(), got_c.numpy(), rtol=0,
                                atol=1e-5)
     assert pseudo.fused_pseudo_pass_pm.launches == 0
+
+
+@pytest.mark.parametrize("channels,sizes,warps", [
+    ([11, 19, 5, 11, 3], [2, 2, 2, 2, 4], MAX_WARPS),
+    ([11, 19, 5, 11, 19, 5, 11, 19], [4] * 8, 1),
+    ([32] * 8, [4] * 8, 1),
+])
+def test_plan_at_5_and_8_models(channels, sizes, warps):
+    """Past the main path's 3 models, up to the kernel's 8: a round's 5
+    (4 bf16 sources and the f32 target model) keeps 4 warps a block; 8
+    f32 models stage 50-128 KB a warp, so the plan drops to one warp a
+    block, which with the static tables of 8 models still fits the
+    card's shared memory."""
+    plan = pm_plan(channels, sizes, 3, True)
+    assert len(plan.offsets) == len(channels) <= pseudo.MAX_MODELS == 8
+    assert plan.warps == warps
+    assert plan.wbytes == sum(-(-RUN_PIXELS * c * s // 16) * 16
+                              for c, s in zip(channels, sizes))
+    assert plan.warps * plan.wbytes + _static_bytes(plan.t1) <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("mode", ["soft", "hard"])
+def test_plain_matches_jax_at_5_models(mode):
+    """A round's 5-model ensemble (4 sources and the 3-class target model)
+    through the port's plain pixel-major pass and the JAX package's
+    `fused_pseudo_pass`: labels equal, confidences within 1e-5."""
+    rng = np.random.default_rng(7)
+    names = ("camvid", "cityscapes", "forest", "camvid")
+    convs = [label_conversion_matrix(n) for n in names]
+    convs.append(np.concatenate([np.eye(3, dtype=np.float32),
+                                 np.zeros((3, 1), np.float32)], axis=1))
+    logits = [rng.normal(0, 2, (2, 9, 13, c)).astype(np.float32)
+              for c in (11, 19, 5, 11, 3)]
+    kc = np.asarray([0.4, 0.5, 0.6], np.float32)
+    want_l, want_c = fused_pseudo_pass(
+        [jnp.asarray(x) for x in logits], [jnp.asarray(c) for c in convs],
+        mode=mode, kc=jnp.asarray(kc))
+    got_l, got_c = pseudo.fused_pseudo_pass_plain(
+        [torch.from_numpy(x) for x in logits], convs, mode=mode,
+        kc=torch.from_numpy(kc))
+    np.testing.assert_array_equal(got_l.numpy(), np.asarray(want_l))
+    np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), rtol=0,
+                               atol=1e-5)

@@ -15,8 +15,10 @@ import pytest
 import torch
 
 from mspl_tpu.data.label_space import label_conversion_matrix
+from mspl_tpu.ops.pallas_pseudo_cm import fused_pseudo_cm
 from mspl_tpu.pseudo.generate import fused_pseudo_pass
-from mspl_tpu_torch.ops.pseudo_cm import (MAX_C, PIXELS_PER_THREAD,
+from mspl_tpu_torch.ops.pseudo_cm import (MAX_C, MAX_MODELS,
+                                          PIXELS_PER_THREAD,
                                           fused_pseudo_cm_plain, launch_plan)
 
 SOURCES = (("camvid", 11), ("cityscapes", 19), ("forest", 5))
@@ -94,4 +96,49 @@ def test_plan_model_matches_jax_at_an_odd_pixel_count():
                                atol=1e-5)
     np.testing.assert_array_equal(got_l.numpy(), plain_l.numpy())
     np.testing.assert_allclose(got_c.numpy(), plain_c.numpy(), rtol=0,
+                               atol=1e-5)
+
+
+# ensembles past the main path's 3 models: a self-training round with 4
+# sources (its target model the fifth, 3 classes) and the kernel's limit of
+# 8 models, at the registry's widest source (19 classes) and at MAX_C
+MANY = [(11, 19, 5, 11, 3), (11, 19, 5, 11, 19, 5, 11, 19), (32,) * 8]
+
+
+@pytest.mark.parametrize("channels", MANY, ids=["5", "8", "8x32"])
+def test_plan_at_5_and_8_models(channels):
+    """Each model keeps its own register width up to the kernel's 8
+    models; the tables (8 models of MAX_C rows, 4 or 8 columns) stay 8 KB
+    of static shared memory at most."""
+    widths, t1, vec = launch_plan(list(channels), 3, 16 * 24, True)
+    assert len(widths) == len(channels) <= MAX_MODELS == 8
+    assert widths == tuple(-(-c // 4) * 4 for c in channels)
+    assert t1 == 4 and vec
+    assert 4 * MAX_MODELS * MAX_C * 8 <= 8 * 1024
+
+
+@pytest.mark.parametrize("mode,conf_mode", [("soft", "prob"),
+                                            ("hard", "entropy")])
+def test_plain_matches_jax_at_5_models(mode, conf_mode):
+    """A round's 5-model ensemble (4 sources and the 3-class target model)
+    through the port's plain channel-major pass and the JAX package's
+    `fused_pseudo_cm` in interpret mode: labels equal, confidences within
+    1e-5."""
+    rng = np.random.default_rng(5)
+    chans = MANY[0]
+    names = ("camvid", "cityscapes", "forest", "camvid")
+    convs = [label_conversion_matrix(n) for n in names]
+    convs.append(np.concatenate([np.eye(3, dtype=np.float32),
+                                 np.zeros((3, 1), np.float32)], axis=1))
+    logits = [rng.normal(0, 2, (2, c, 16, 24)).astype(np.float32)
+              for c in chans]
+    kc = np.asarray([0.4, 0.5, 0.6], np.float32)
+    want_l, want_c = fused_pseudo_cm(
+        [jnp.asarray(x) for x in logits], convs, jnp.asarray(kc), mode=mode,
+        conf_mode=conf_mode, interpret=True)
+    got_l, got_c = fused_pseudo_cm_plain(
+        [torch.from_numpy(x) for x in logits], convs, torch.from_numpy(kc),
+        mode=mode, conf_mode=conf_mode)
+    np.testing.assert_array_equal(got_l.numpy(), np.asarray(want_l))
+    np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), rtol=0,
                                atol=1e-5)

@@ -149,17 +149,26 @@ def test_split_emulation_matches_plain(c, k, dtype):
     assert ((got - want).abs() <= atol + rtol * want.abs()).all()
 
 
-# (C, K, H, W, grouped): level3 and level4 of ESPNetv2 at 256x480, the
-# dense K = 3 chain of chip_smoke.py, and a 3x5 plane that the dilations
-# reach past
+# (C, K, r_lim, H, W): level3 and level4 of ESPNetv2 at 256x480, the
+# dense K = 3 chain of chip_smoke.py, a 3x5 plane that the dilations reach
+# past, level3 and level4 of a 512x1024 image (Cityscapes' size), too wide
+# for a full-width row band in f32, and a 128x256 plane, too wide in bf16
+# too
 TILED = [(256, 4, 9, 32, 60), (512, 4, 7, 16, 30), (24, 3, 7, 16, 24),
-         (16, 4, 9, 3, 5)]
+         (16, 4, 9, 3, 5), (256, 4, 9, 64, 128), (512, 4, 7, 32, 64),
+         (256, 4, 9, 128, 256)]
 
 
 @pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
 @pytest.mark.parametrize("c,k,r_lim,h,w", TILED,
-                         ids=["level3", "level4", "dense", "odd3x5"])
+                         ids=["level3", "level4", "dense", "odd3x5",
+                              "wide_level3", "wide_level4", "wide128x256"])
 def test_tiling_fits_and_covers(c, k, r_lim, h, w, itemsize):
+    """The tiling's shared memory fits a block, its chunks and proj
+    windows are 16-pixel multiples, and its blocks (row bands of th rows,
+    column bands of tw columns: the grid's x and z) cover every output
+    pixel once, each block's halo band (dmax rows and columns each side,
+    cut at the edges) within the staged capacity."""
     n = c // k
     grouped = c % k == 0 and n % k == 0
     g = k if grouped else 1
@@ -176,10 +185,95 @@ def test_tiling_fits_and_covers(c, k, r_lim, h, w, itemsize):
     split = 2 if itemsize == 4 else 1
     assert prows * (t.pp + es.LD_PAD) * 2 * split <= (
         t.zrows * (t.pc + es.LD_PAD) * 4)
-    covered = []
-    for r0 in range(0, h, t.th):   # one block a band, grid ceil(h / th)
-        r1 = min(h, r0 + t.th)
-        covered += range(r0, r1)
-        halo = min(h, r1 + dmax) - max(0, r0 - dmax)
-        assert halo * w <= t.cap
-    assert covered == list(range(h))
+    assert 1 <= t.tw <= w
+    covered = torch.zeros((h, w), dtype=torch.int32)
+    for r0 in range(0, h, t.th):
+        for c0 in range(0, w, t.tw):
+            r1, c1 = min(h, r0 + t.th), min(w, c0 + t.tw)
+            covered[r0:r1, c0:c1] += 1
+            rows = min(h, r1 + dmax) - max(0, r0 - dmax)
+            cols = min(w, c1 + dmax) - max(0, c0 - dmax)
+            assert rows * cols <= t.cap
+    assert bool((covered == 1).all())
+
+
+@pytest.mark.parametrize("itemsize,want", [
+    (2, [(16, 1200, 48, 96, 256, 227328), (16, 480, 32, 64, 512, 221184)]),
+    (4, [(4, 720, 16, 16, 256, 225280), (4, 300, 16, 16, 512, 219136)]),
+], ids=["bf16", "f32"])
+def test_tiling_at_the_main_path_is_unchanged(itemsize, want):
+    """Where a full-width row band fits, as at both of the main path's
+    planes, the tiling is the full-width one the kernel has always taken
+    (rows a band, capacity, chunk, proj window, z rows, shared bytes), so
+    the `fuse_stages` route's launches are those measured before column
+    bands came in."""
+    for (c, r_lim, h, w), pinned in zip(((256, 9, 32, 60), (512, 7, 16, 30)),
+                                        want):
+        n = c // 4
+        dmax = max(branch_dilations(4, r_lim))
+        t = es._tiling(h, w, n, c, 4, dmax, itemsize, 4, True)
+        assert (t.th, t.cap, t.pc, t.pp, t.zrows, t.smem) == pinned
+        assert t.tw == w
+
+
+def _banded_stack(y, taps, dilations, th, tw):
+    """The kernel's tap phase over blocks of th x tw outputs, from each
+    block's halo band of y as the kernel stages it (rows h0.., columns
+    x0..x0+bw, row-major with stride bw), outputs at the kernel's
+    addresses: output pixel q of a block at image row r0 + q // ow, column
+    c0 + q % ow.  y [n, H, W], taps [K, 3, 3, n] -> [K*n, H, W]; every
+    tap read stays in the block's halo band."""
+    n, h, w = y.shape
+    k, dmax = len(dilations), max(dilations)
+    out = torch.full((k * n, h * w), float("nan"))
+    for r0 in range(0, h, th):
+        for c0 in range(0, w, tw):
+            r1, c1 = min(h, r0 + th), min(w, c0 + tw)
+            h0, h1 = max(0, r0 - dmax), min(h, r1 + dmax)
+            x0 = max(0, c0 - dmax)
+            bw = min(w, c1 + dmax) - x0
+            ys = y[:, h0:h1, x0:x0 + bw].reshape(n, -1)
+            ow = c1 - c0
+            q = torch.arange((r1 - r0) * ow)
+            yy, xx = r0 + q // ow, c0 + q % ow
+            hff = 0.0
+            for ki, d in enumerate(dilations):
+                acc = 0.0
+                for ky in range(3):
+                    for kx in range(3):
+                        sy, sx = yy + (ky - 1) * d, xx + (kx - 1) * d
+                        ok = (sy >= 0) & (sy < h) & (sx >= 0) & (sx < w)
+                        idx = (sy - h0) * bw + (sx - x0)
+                        assert bool(((idx >= 0) & (idx < ys.shape[1]))[ok]
+                                    .all())
+                        v = ys[:, idx.clamp(0, ys.shape[1] - 1)] * ok
+                        acc = acc + taps[ki, ky, kx][:, None] * v
+                hff = hff + acc
+                out[ki * n:(ki + 1) * n, yy * w + xx] = hff
+    return out.view(k * n, h, w)
+
+
+@pytest.mark.parametrize("h,w,th,tw,dil", [
+    (11, 13, 3, 5, (1, 2, 3, 4)),   # column bands on an odd plane
+    (16, 30, 4, 30, (1, 1, 2, 3)),  # full-width row bands
+    (3, 5, 1, 2, (1, 2, 3, 4)),     # dilations past a tiny plane
+    (64, 128, None, None, (1, 2, 3, 4)),  # the f32 tiling of level3
+])
+def test_band_layout_emulation_matches_plain(h, w, th, tw, dil):
+    """The tap phase as the kernel addresses a block's halo band and its
+    outputs (column bands included) gives the plain version's branch
+    stack, every output written once, at tilings of odd planes and at the
+    column-banded tiling `_tiling` picks for a 512x1024 image's level3 in
+    f32."""
+    if th is None:
+        t = es._tiling(h, w, 64, 256, 4, 4, 4, 4, True)
+        th, tw = t.th, t.tw
+        assert tw < w
+    gen = torch.Generator().manual_seed(h * w)
+    n = 3
+    y = torch.randn((n, h, w), generator=gen)
+    taps = torch.randn((len(dil), 3, 3, n), generator=gen)
+    got = _banded_stack(y, taps, dil, th, tw)
+    want = _stack_plain(y[None], taps, dil, 1)[0]
+    assert not bool(got.isnan().any())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

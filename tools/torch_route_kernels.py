@@ -7,18 +7,23 @@ and ⑧ (`fused_pseudo_pass_pm`, NHWC `use_pallas`) alone, on one CUDA card.
 Prints the card's name and power limit, then builds only `eesp_branches`
 and `pseudo_pm` (the build seconds and the compiler's registers, spills
 and stack of every kernel instance), runs `chip_smoke.py`'s phase-3
-checks of ⑤ (the main path's calls and the odd shapes), ⑦ and ⑧ (every
-fusion and confidence, f32, bf16 and the mixed ensemble, at the main
-plane and the odd pixel count), and times with CUDA events (the least of
-N runs of 5 repetitions), with the kernels' device time a call beside
-(torch.profiler) and the host's time to issue a call: ⑤ on one level3
-call ([128, 64, 32, 60], dilations (1,2,3,4)), one level4 call ([128,
-128, 16, 30], (1,1,2,3)) and the route's 30 calls of a batch with their
-taps packed as the route hands them, beside the default route's cuDNN
-stack on the same 30 calls; ⑧ on the main path's bf16 batch of 128 and
-on the round's mixed ensemble at batch 8 (3 bf16 sources and an f32
-3-class model); each beside its bound from `chip_smoke.eesp_work` and
-`pm_work`.  Last it prints one JSON object.
+checks of ⑤ (the main path's calls and the odd shapes), ⑦ (its calls,
+odd shapes and backward: `check_front`) and ⑧
+(every fusion and confidence, f32, bf16 and the mixed ensemble, at the
+main plane and the odd pixel count), and times with CUDA events (the
+least of N runs of 5 repetitions), with the kernels' device time a call
+beside (torch.profiler) and the host's time to issue a call: ⑤ on one
+level3 call ([128, 64, 32, 60], dilations (1,2,3,4)), one level4 call
+([128, 128, 16, 30], (1,1,2,3)) and the route's 30 calls of a batch with
+their taps packed as the route hands them, beside the default route's
+cuDNN stack on the same 30 calls; ⑦ on each level's call (the three
+DownSamplers of `chip_smoke.FRONTS`) and the 9 calls of a batch, each
+with its two kernels' device time, beside the default route's strided
+front on them (`chip_smoke.cudnn_front`); ⑧ on the main path's bf16
+batch of 128 and on the round's mixed ensemble at batch 8 (3 bf16
+sources and an f32 3-class model); each beside its bound from
+`chip_smoke.eesp_work`, `front_work` and `pm_work`.  Last it prints one
+JSON object.
 
 `--tree DIR` imports `chip_smoke` and `mspl_tpu_torch` from another
 checkout (for example `git archive` of another commit that has this
@@ -56,9 +61,9 @@ def ptxas_lines(log: Path):
     return out
 
 
-def device_ms(fn, reps: int = 5) -> float:
-    """Device time of one call of `fn`: its kernels' time (torch.profiler)
-    over `reps` calls, a call's share."""
+def device_by_kernel(fn, reps: int = 5) -> dict:
+    """Device time of one call of `fn` by kernel name (torch.profiler) over
+    `reps` calls, a call's share, in ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -69,8 +74,14 @@ def device_ms(fn, reps: int = 5) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    return {e.key: e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def device_ms(fn, reps: int = 5) -> float:
+    """Device time of one call of `fn`: its kernels' time (torch.profiler)
+    over `reps` calls, a call's share."""
+    return sum(device_by_kernel(fn, reps).values())
 
 
 def host_us(fn, calls: int, reps: int = 20) -> float:
@@ -132,10 +143,7 @@ def main():
             eesp_branches.eesp_branches, eesp_branches.eesp_branches_plain,
             cs.with_odd(cs.eesp_calls, cs.eesp_odd_calls), gen, 1e-5,
             "eesp_branches", rtol32=1e-5),
-        "down_front": cs.check_elementwise(
-            cs._flat_outputs(eesp_branches.down_front),
-            cs._flat_outputs(eesp_branches.down_front_plain), cs.front_calls,
-            gen, 1e-5, "down_front", rtol32=1e-5)}
+        "down_front": cs.check_front(gen)[0]}
     pm_errs = cs.check_pm(gen)
     err16["fused_pseudo_pass_pm"] = pm_errs[torch.bfloat16]
     print(f"checks passed (with the odd shapes; chip_smoke phase 3: fp32 within 1e-5 "
@@ -168,6 +176,32 @@ def main():
     route = cases[-1][0]
     del dw, calls, level3, level4, cases, run
 
+    calls = cs.front_calls(cs.BATCH, torch.bfloat16, gen)
+    fronts = [(f"down_front level{i + 1} {tuple(calls[i][0].shape)}",
+               [calls[i]]) for i in range(len(cs.FRONTS))]
+    fronts.append((f"down_front, {len(calls)} calls", calls))
+    front_split = {}
+    for name, sub in fronts:
+        run = lambda sub=sub: [  # noqa: E731
+            eesp_branches.down_front(*a) for a in sub]
+        times[name] = least(run)
+        split = {}  # by kernel, its template instances summed
+        for k, v in device_by_kernel(run).items():
+            key = k.split("(")[0].split("<")[0].split()[-1]
+            split[key] = split.get(key, 0.0) + v
+        front_split[name] = split
+        dev[name] = sum(split.values())
+        host[name] = host_us(run, len(sub))
+        bounds[name] = cs.bound(*cs.front_work(sub))[0]
+    for name, split in front_split.items():
+        print(f"{name}: device ms by kernel " + ", ".join(
+            f"{k} {v:.4f}" for k, v in split.items()), flush=True)
+    dw = [(x, p, cs.dw_kernels(wts, d, x.dtype), d) for x, p, wts, d in calls]
+    front_cudnn = least(lambda: [cs.cudnn_front(*a) for a in dw])
+    front_cudnn_dev = device_ms(lambda: [cs.cudnn_front(*a) for a in dw])
+    front_route = fronts[-1][0]
+    del calls, fronts, run, dw
+
     convs = [label_conversion_matrix(n) for n, _ in cs.SOURCES]
     kc = torch.full((3,), cs.KC, device="cuda")
     (logits,), = cs.pm_calls(cs.BATCH, torch.bfloat16, gen)
@@ -194,13 +228,20 @@ def main():
           f"{cudnn:.4f} ms (CUDA events), device {cudnn_dev:.4f} ms "
           f"(profiler); the kernel {times[route]:.4f}, device "
           f"{dev[route]:.4f}", flush=True)
+    print(f"default route's strided DownSampler front on the same calls: "
+          f"{front_cudnn:.4f} ms (CUDA events), device {front_cudnn_dev:.4f} "
+          f"ms (profiler); the kernels {times[front_route]:.4f}, device "
+          f"{dev[front_route]:.4f}", flush=True)
     print(json.dumps({"card": smi, "tree": str(tree), "build_s": secs,
                       "instances": {k: len(v) for k, v in instances.items()},
                       "bf16_err": err16, "mixed_err": pm_errs["mixed"],
                       "ms": times, "device_ms": dev, "host_us": host,
                       "bound_ms": bounds,
                       "cudnn_stack_ms": cudnn,
-                      "cudnn_stack_device_ms": cudnn_dev}),
+                      "cudnn_stack_device_ms": cudnn_dev,
+                      "front_by_kernel_ms": front_split,
+                      "cudnn_front_ms": front_cudnn,
+                      "cudnn_front_device_ms": front_cudnn_dev}),
           flush=True)
 
 
