@@ -43,7 +43,13 @@ class BatchNorm(nn.BatchNorm2d):
     flax does: running = 0.9 * running + 0.1 * batch, with the *biased*
     variance.  torch's own update (`F.batch_norm(training=True)` with
     buffers) would take the unbiased one, so the buffers are updated here,
-    under no_grad, and torch normalizes without them."""
+    under no_grad, and torch normalizes without them.
+
+    With one value per channel (B*H*W == 1, as a DeepLab ASPP image pool
+    at batch 1) torch's batch norm raises; flax normalizes all the same:
+    x - mean is 0, so the output is the bias, the running mean takes the
+    value and the running variance 0.  That case is normalized here by
+    hand, with the gradients flax's gives (0 to x and the scale)."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=BN_EPS)
@@ -65,6 +71,11 @@ class BatchNorm(nn.BatchNorm2d):
                                                      alpha=1 - BN_MOMENTUM)
             self.running_var.mul_(BN_MOMENTUM).add_(var,
                                                     alpha=1 - BN_MOMENTUM)
+        if xf.numel() == xf.shape[1]:
+            shape = (1, -1, 1, 1)
+            a = (self.weight * torch.rsqrt(var + self.eps)).view(shape)
+            return ((xf - xf.mean(dim=(0, 2, 3), keepdim=True)) * a
+                    + self.bias.view(shape)).to(x.dtype)
         return F.batch_norm(xf, None, None, self.weight, self.bias, True,
                             0.0, self.eps).to(x.dtype)
 

@@ -1,8 +1,8 @@
 """Constants and dataset infos (port of mspl_tpu/utils/registry.py).
 
-Only what the pseudo-label path needs: the ignore label, the ImageNet
-normalization statistics, and the infos of the three source datasets and
-the greenhouse target.
+The ignore label, the ImageNet normalization statistics, the infos of the
+three source datasets and the greenhouse target, and the name lists that
+the model factory (and the CLI) validate against.
 """
 
 from __future__ import annotations
@@ -61,6 +61,16 @@ DATASET_INFO: Dict[str, DatasetInfo] = {
         class_names=("plant", "artificial_object", "ground"),
     ),
 }
+
+SEGMENTATION_DATASETS = tuple(DATASET_INFO.keys())
+
+MODEL_NAMES = ("espnetv2", "deeplabv3")
+
+SCHEDULER_NAMES = ("poly", "step", "cyclic", "hybrid", "linear", "fixed")
+
+FUSION_MODES = ("soft", "hard")
+CONF_MODES = ("prob", "entropy")  # confidence/entropy thresholding families
+
 
 def dataset_info(name: str) -> DatasetInfo:
     try:

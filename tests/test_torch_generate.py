@@ -4,7 +4,8 @@ Three tiny ESPNetv2 sources (CamVid 11, Cityscapes 19, Forest 5 classes)
 share one perturbed flax variable tree each between the two packages; the
 same uint8 batches go through each package's DataLoader and
 PseudoLabelGenerator on channel-major sources (soft fusion, prob
-confidence, kc), then through the CBST histograms and kc."""
+confidence, kc), then through the CBST histograms and kc; and an ensemble
+with a DeepLabV3 source beside two ESPNetv2 sources."""
 
 import jax
 import jax.numpy as jnp
@@ -15,10 +16,12 @@ import torch
 from mspl_tpu.data.label_space import label_conversion_matrix
 from mspl_tpu.data.loader import DataLoader as JaxDataLoader
 from mspl_tpu.data.transforms import normalize as jax_normalize
+from mspl_tpu.models import DeepLabV3 as FlaxDeepLab
 from mspl_tpu.models import ESPNetv2Segmentation as FlaxESPNetv2
 from mspl_tpu.pseudo import cbst as jax_cbst
 from mspl_tpu.pseudo import generate as jax_gen
 from mspl_tpu_torch.data.loader import DataLoader
+from mspl_tpu_torch.models.deeplab import DeepLabV3
 from mspl_tpu_torch.models.espnetv2 import ESPNetv2Segmentation
 from mspl_tpu_torch.ops.pseudo_cm import fused_pseudo_cm
 from mspl_tpu_torch.pseudo import cbst
@@ -213,3 +216,52 @@ def test_fused_pseudo_pass_matches_jax(mode, min_agree, conf_mode, with_kc):
             min_agree=min_agree, conf_mode=conf_mode)
         np.testing.assert_array_equal(cl.numpy(), gl.numpy())
         np.testing.assert_allclose(cc.numpy(), gc.numpy(), rtol=0, atol=1e-5)
+
+
+DEEPLAB_KW = dict(stage_blocks=(1, 1, 1, 1), aspp_features=16)
+
+
+def test_deeplab_source_beside_espnetv2_sources_matches_jax():
+    """A CamVid DeepLabV3 source (its NCHW f32 logits straight into the
+    channel-major pass; the JAX package appends a transpose to its NHWC
+    ones) beside the Cityscapes and Forest ESPNetv2 sources, soft fusion
+    with kc: labels equal pixel for pixel and confidences within 1e-4 of
+    the JAX package's generator; the same sources with NHWC logits through
+    the plain pass give the same labels and confidences within 1e-5."""
+    flax_models = [FlaxDeepLab(num_classes=11, **DEEPLAB_KW)] + [
+        FlaxESPNetv2(num_classes=c, s=0.5, dec_base_planes=8)
+        for _, c in SOURCES[1:]]
+    variables = [flax_variables(flax_models[0], HW, 30)]
+    variables[0]["params"]["classifier"]["kernel"] *= 4.0
+    variables += [_variables(m, seed=31 + i)
+                  for i, m in enumerate(flax_models[1:])]
+    data = _Images(seed=5)
+    jsrcs = [jax_gen.make_source(name, m, v, name, channel_major=True)
+             for (name, _), m, v in zip(SOURCES, flax_models, variables)]
+    wl, wc, wi = jax_gen.PseudoLabelGenerator(jsrcs, mode="soft", kc=KC)(
+        JaxDataLoader(data, batch_size=BATCH, num_workers=1))
+
+    def port_sources(channel_major):
+        models = [DeepLabV3(11, **DEEPLAB_KW)] + [
+            ESPNetv2Segmentation(c, s=0.5, dec_base_planes=8)
+            for _, c in SOURCES[1:]]
+        return [make_source(name, m, v, name, channel_major=channel_major,
+                            device="cpu")
+                for (name, _), m, v in zip(SOURCES, models, variables)]
+
+    srcs = port_sources(True)
+    assert srcs[0].compute_dtype == torch.float32
+    gl, gc, gi = PseudoLabelGenerator(srcs, mode="soft", kc=KC,
+                                      device="cpu")(
+        DataLoader(data, batch_size=BATCH, num_workers=1))
+    np.testing.assert_array_equal(gi, wi)
+    assert np.unique(np.round(wc, 3)).size > 50
+    np.testing.assert_allclose(gc, wc, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(gl, wl)
+    assert 0.05 < (gl == 255).mean() < 0.95
+    nl, nc, _ = generate_pseudo_labels(
+        port_sources(False), DataLoader(data, batch_size=BATCH,
+                                        num_workers=1),
+        mode="soft", kc=KC, device="cpu")
+    np.testing.assert_allclose(nc, gc, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(nl, gl)

@@ -2,7 +2,8 @@
 
 Two rounds of `self_training` run in each package from the same flax
 trees: three tiny ESPNetv2 (s=0.5) sources (CamVid 11, Cityscapes 19,
-Forest 5 classes) through the flax bridge, a 3-class target model, and a
+Forest 5 classes) through the flax bridge, a 3-class target model (an
+ESPNetv2, or a small DeepLabV3: the backbone swap of config #5), and a
 synthetic unlabeled target set at 32x48.  The train-time augmentation
 cannot draw the same crops in both packages (a PRNG key against a
 torch.Generator; the transforms are held against each other at the same
@@ -28,6 +29,7 @@ import torch
 from mspl_tpu.data.datasets import SyntheticSegmentation as JaxSynthetic
 from mspl_tpu.data.label_space import label_conversion_matrix
 from mspl_tpu.engine import train as jax_train
+from mspl_tpu.models import DeepLabV3 as FlaxDeepLab
 from mspl_tpu.models import ESPNetv2Segmentation as FlaxESPNetv2
 from mspl_tpu.ops.pallas_pseudo import fused_pseudo_pass_pallas
 from mspl_tpu.ops.pallas_pseudo_cm import fused_pseudo_cm as jax_pseudo_cm
@@ -35,6 +37,7 @@ from mspl_tpu.pseudo import cbst as jax_cbst
 from mspl_tpu.pseudo import generate as jax_gen
 from mspl_tpu_torch.data.datasets import SyntheticSegmentation
 from mspl_tpu_torch.engine import train as port_train
+from mspl_tpu_torch.models.deeplab import DeepLabV3
 from mspl_tpu_torch.models.espnetv2 import ESPNetv2Segmentation
 from mspl_tpu_torch.ops.pseudo import fused_pseudo_pass_plain
 from mspl_tpu_torch.ops.pseudo_cm import fused_pseudo_cm_plain
@@ -55,6 +58,18 @@ N_TARGET, BATCH = 8, 4
 ROUND_KW = dict(rounds=2, batch_size=BATCH, epochs_per_round=1, crop_hw=HW,
                 verbose=False)
 BIN = 1.0 / cbst.DEFAULT_BINS
+# the target model of each package, by registry name: (flax, port)
+TARGETS = {
+    "espnetv2": (
+        lambda: FlaxESPNetv2(num_classes=CLASSES, s=0.5, dec_base_planes=8,
+                             channel_major_logits=True),
+        lambda: ESPNetv2Segmentation(CLASSES, s=0.5, dec_base_planes=8)),
+    "deeplabv3": (
+        lambda: FlaxDeepLab(num_classes=CLASSES, stage_blocks=(1, 1, 1, 1),
+                            aspp_features=16),
+        lambda: DeepLabV3(CLASSES, stage_blocks=(1, 1, 1, 1),
+                          aspp_features=16)),
+}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -103,11 +118,11 @@ def _target_sets(synthetic):
                      unlabeled=True)
 
 
-@pytest.fixture(scope="module")
-def rounds(tmp_path_factory):
+@pytest.fixture(scope="module", params=sorted(TARGETS, reverse=True))
+def rounds(tmp_path_factory, request):
     sources = _source_trees()
-    target = FlaxESPNetv2(num_classes=CLASSES, s=0.5, dec_base_planes=8,
-                          channel_major_logits=True)
+    make_flax, make_port = TARGETS[request.param]
+    target = make_flax()
     target_vars = flax_variables(target, HW, 20)
     caught = {"jax": [], "port": []}
     dirs = {k: tmp_path_factory.mktemp(k) for k in caught}
@@ -128,8 +143,7 @@ def rounds(tmp_path_factory):
             _target_sets(JaxSynthetic), None, CLASSES,
             jax_st.SelfTrainConfig(out_dir=str(dirs["jax"]), **ROUND_KW))
         got = self_training(
-            ESPNetv2Segmentation(CLASSES, s=0.5, dec_base_planes=8),
-            target_vars,
+            make_port(), target_vars,
             [port_gen.make_source(n, ESPNetv2Segmentation(c, s=0.5,
                                                           dec_base_planes=8),
                                   v, n, channel_major=True, device="cpu")

@@ -29,6 +29,7 @@ from mspl_tpu.engine.train import create_train_state as jax_state
 from mspl_tpu.engine.train import evaluate as jax_evaluate
 from mspl_tpu.engine.train import make_eval_step as jax_eval_step
 from mspl_tpu.engine.train import make_train_step as jax_train_step
+from mspl_tpu.models import DeepLabV3 as FlaxDeepLab
 from mspl_tpu.models import ESPNetv2Segmentation as FlaxESPNetv2
 from mspl_tpu_torch.data.transforms import normalize
 from mspl_tpu_torch.engine.losses import (compute_class_weights,
@@ -36,6 +37,7 @@ from mspl_tpu_torch.engine.losses import (compute_class_weights,
 from mspl_tpu_torch.engine.schedules import build_schedule
 from mspl_tpu_torch.engine.train import (create_train_state, evaluate,
                                          make_eval_step, make_train_step)
+from mspl_tpu_torch.models.deeplab import DeepLabV3
 from mspl_tpu_torch.models.espnetv2 import ESPNetv2Segmentation
 from mspl_tpu_torch.utils.flax_bridge import load_flax_variables
 from tests.test_torch_model import _plain_dicts, flax_variables
@@ -349,3 +351,64 @@ def test_rgbd_model_matches_flax():
     with pytest.raises(ValueError, match="shape"):
         load_flax_variables(ESPNetv2Segmentation(CLASSES, **MODEL_KW),
                             variables)
+
+
+def _update_gaps(port, ref, start):
+    """Per parameter: the gap between the port's and JAX's updated tensor
+    in norm, relative to JAX's update's norm, and by element, relative to
+    JAX's largest update in the tensor (floored at 1e-3 of the model's
+    largest)."""
+    ref_p = dict(ref.named_parameters())
+    ups = {n: ref_p[n].detach() - start[n] for n in start}
+    u_floor = 1e-3 * max(u.abs().max().item() for u in ups.values())
+    out = {}
+    for name, t in port.named_parameters():
+        gap = t.detach() - ref_p[name].detach()
+        up = ups[name]
+        out[name] = (gap.norm().item() / max(up.norm().item(), u_floor),
+                     gap.abs().max().item() / max(up.abs().max().item(),
+                                                  u_floor))
+    return out
+
+
+@pytest.mark.parametrize("batch", [2, 1])
+def test_deeplab_sgd_step_matches_jax(batch):
+    """One SGD step of a small DeepLabV3 (one bottleneck a stage, a 16-wide
+    ASPP) through `make_train_step(augment=False)` against the JAX
+    package's: the loss within 1e-5 relative (measured 1.2e-6), every
+    running statistic within 1e-5 (means absolute, variances relative),
+    and each parameter's update within 2e-2 of JAX's in norm and 0.1 of its
+    largest element.  The update is lr times the gradient, and DeepLab's
+    fp32 gradients at batch 2 are rounding noise apart by up to 1e-2 in
+    norm and 6.3e-2 by element (the stage-3 BatchNorm biases, 12 values a
+    channel): JAX's own fp32 gradients are 5e-3 off its f64 ones in norm,
+    the port's 1e-2 (the updates read 9.5e-3 and 6.4e-2).  At batch 1 the
+    ASPP image pool's train BatchNorm sees one value per channel (its
+    gradients to x and the scale are 0, as flax's); the updates read
+    1.5e-3 and 5.9e-3 there."""
+    kw = dict(stage_blocks=(1, 1, 1, 1), aspp_features=16)
+    model = FlaxDeepLab(num_classes=CLASSES, **kw)
+    variables = flax_variables(model, HW, seed=14)
+    batches = [{k: v[:batch] for k, v in b.items()} for b in _batches(1)]
+    labels = batches[0]["label"]
+    cw = compute_class_weights(np.bincount(labels[labels != 255],
+                                           minlength=CLASSES))
+    (want_loss, want_tree), = _trajectory(model, variables, batches, cw,
+                                          SGD_SCHEDULE, "sgd", 1)
+    port = DeepLabV3(CLASSES, **kw)
+    load_flax_variables(port, variables)
+    start = {n: t.detach().clone() for n, t in port.named_parameters()}
+    sched = build_schedule(SGD_SCHEDULE["name"], SGD_SCHEDULE["base_lr"],
+                           SGD_SCHEDULE["total_steps"], max_lr=0.01,
+                           cycle_epochs=3)
+    state = create_train_state(port, "sgd", sched, device="cpu")
+    step = make_train_step(port, class_weights=cw, augment=False,
+                           device="cpu")
+    state, metrics = step(state, batches[0])
+    assert port.training and state.step == 1
+    np.testing.assert_allclose(metrics["loss"].item(), want_loss, rtol=1e-5)
+    ref = _flax_layout(want_tree, port)
+    _compare_stats(port, ref, "after the step", 1e-5)
+    for name, (norm_gap, elem_gap) in _update_gaps(port, ref, start).items():
+        assert norm_gap <= 2e-2 and elem_gap <= 0.1, (name, norm_gap,
+                                                      elem_gap)
