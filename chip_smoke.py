@@ -70,10 +70,23 @@ Phases (each prints a line; any failure raises and exits non-zero):
      then 3 self-training rounds with it as the target beside phase 7's
      sources and sets, each round's labels gated against the same sweep
      on the plain versions, with their launch counts (`phase_deeplab`).
+  9. CLI: the port's command line (`mspl_tpu_torch.cli.main`) at full
+     width in a temporary directory: 256 greenhouse target and 16 labeled
+     images written as PNGs through the port's codec (which phase 2 builds
+     from native/mspl_io.cc beside the kernels), phase 4's sources written
+     as CLI checkpoints; `pseudo` (batch 128, soft, --p 0.2) with its
+     img/s end to end, gated pixel for pixel against the in-process sweep
+     from the same weights and images (deterministic cuDNN); `train` (16
+     images, batch 8, 3 epochs, a checkpoint every step) and its mid-epoch
+     resume in process against the uninterrupted run; `eval` and `infer`
+     against the loaded model in process; one `selftrain` round; and
+     `export-torch` then `import-torch` of the trained target and of a
+     full-width DeepLabV3, bit-equal (`phase_cli`).
 The last line is {"ok": true, "device": {...}}; the line before it names
 the card, and the one before that lists every kernel as JSON (the branch
 kernel's row also carries its train launches, and every row its launches
-in phase 7's two rounds and in phase 8's three).
+in phase 7's two rounds, in phase 8's three and over phase 9's CLI
+commands).
 """
 
 from __future__ import annotations
@@ -180,7 +193,15 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    import threading
+
+    from mspl_tpu_torch.data import native_io
+
+    # the native PNG codec (g++) builds beside the nvcc processes
+    native = threading.Thread(target=native_io.available)
+    native.start()
     secs = _cuda.build_all()
+    native.join()
     regs = []
     for name in _cuda.SOURCES:
         log = (_cuda.BUILD / f"{name}.log")
@@ -195,7 +216,11 @@ def phase_build() -> None:
                     + (f" (stack frame up to {max(stack)} bytes)"
                        if stack else ""))
     print(f"phase 2 build: {secs:.1f} s for {len(_cuda.SOURCES)} sources "
-          f"(nvcc sm_90a, in parallel) | {' | '.join(regs)}", flush=True)
+          f"(nvcc sm_90a, in parallel) | {' | '.join(regs)} | native PNG "
+          f"codec (g++): "
+          + (native_io.lib_path().name if native_io.available() else
+             "did not build, see mspl_tpu_torch/_build/mspl_io.log"),
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2559,6 +2584,470 @@ def phase_deeplab(smi: str, sources, profile_dir=None):
     return timed["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the command line at full width
+# ---------------------------------------------------------------------------
+
+CLI_TARGET, CLI_LABELED = 256, 16  # greenhouse target images, labeled ones
+CLI_BATCH = 128                    # pseudo's --batch-size
+CLI_SIZE = ["--size", str(HW[1]), str(HW[0])]
+# the CLI train's settings (its defaults: SGD, hybrid lr 0.009, crop = size
+# at scales 0.5-2, seed 0) on the 16 labeled images at batch 8: 2 steps an
+# epoch, 3 epochs, a checkpoint after every step
+CLI_TRAIN = dict(epochs=3, batch=8, every=1)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def _write_cli_data(root: str):
+    """Greenhouse scenes as PNGs through the port's encoder, with
+    reference-format lists: 256 unlabeled target images (`target.txt`) and
+    16 labeled ones (`labeled.txt`).  Returns the uint8 arrays."""
+    from mspl_tpu_torch.data import native_io
+    from mspl_tpu_torch.data.datasets import SyntheticSegmentation
+    from mspl_tpu_torch.data.label_io import save_label_png, write_train_list
+
+    size_wh = (HW[1], HW[0])
+    out = {}
+    for name, n, seed in (("target", CLI_TARGET, SEED + 6),
+                          ("labeled", CLI_LABELED, SEED + 7)):
+        ds = SyntheticSegmentation(TRAIN_CLASSES, size_wh, n, seed=seed)
+        samples = [ds.load(i) for i in range(n)]
+        imgs = np.stack([x for x, _ in samples])
+        labs = np.stack([y for _, y in samples])
+        os.makedirs(os.path.join(root, name), exist_ok=True)
+        img_paths = [f"{name}/img_{i:04d}.png" for i in range(n)]
+        lab_paths = [f"{name}/lab_{i:04d}.png" for i in range(n)]
+        for i in range(n):
+            native_io.encode_png(os.path.join(root, img_paths[i]), imgs[i])
+        if name == "labeled":
+            for i in range(n):
+                save_label_png(labs[i], os.path.join(root, lab_paths[i]))
+            write_train_list(os.path.join(root, "labeled.txt"), img_paths,
+                             lab_paths)
+        else:
+            with open(os.path.join(root, "target.txt"), "w") as f:
+                f.writelines(p + "\n" for p in img_paths)
+        out[name] = (imgs, labs)
+    return out
+
+
+def _cli(argv, tally):
+    """`cli.main(argv)` on the card with every launch count set to 0 just
+    before and read just after; adds the counts to `tally` and returns
+    (result, seconds, launches)."""
+    from mspl_tpu_torch import cli
+
+    for fn in ALL_COUNTERS.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _counts()
+    for k, v in launches.items():
+        tally[k] = tally.get(k, 0) + v
+    return res, secs, launches
+
+
+def _flat(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v)
+    return out
+
+
+def _same_tree(a, b) -> bool:
+    fa, fb = _flat(a), _flat(b)
+    return fa.keys() == fb.keys() and all(
+        fa[k].dtype == fb[k].dtype and fa[k].tobytes() == fb[k].tobytes()
+        for k in fa)
+
+
+def cli_pseudo(root, ckpts, sources, data, tally):
+    """`pseudo` over the 256 target images (soft, --p 0.2, batch 128),
+    timed on its second run, against the in-process sweep from the same
+    weights on the same uint8 images, pixel for pixel."""
+    from mspl_tpu_torch import cli
+    from mspl_tpu_torch.data.label_io import load_label_png
+
+    spans = {}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans[name] = spans.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    out = os.path.join(root, "pseudo")
+    argv = ["pseudo", "--checkpoints", *ckpts, "--data-root", root,
+            "--target-list", os.path.join(root, "target.txt"),
+            "--out-dir", out, "--batch-size", str(CLI_BATCH),
+            "--fusion", "soft", "--p", "0.2"] + CLI_SIZE
+    n_batches = -(-CLI_TARGET // CLI_BATCH)
+    with deterministic_cudnn():
+        _cli(argv, tally)  # warm: cuDNN's deterministic plans, allocator
+        with swapped([(generate, "generate_pseudo_labels",
+                       timed("generation", generate.generate_pseudo_labels)),
+                      (cli, "load_model_checkpoint",
+                       timed("load", cli.load_model_checkpoint))]):
+            res, secs, launches = _cli(argv, tally)
+        for k, per in PER_BATCH.items():
+            if launches[k] != per * n_batches:
+                raise AssertionError(f"pseudo: {k} launched {launches[k]} "
+                                     f"times in {n_batches} batches")
+        imgs = data["target"][0]
+        labels, confs, idx = generate.generate_pseudo_labels(
+            sources, DataLoader(SyntheticImages(CLI_TARGET, imgs),
+                                batch_size=CLI_BATCH),
+            mode="soft", return_device=True, device="cuda")
+        kc = sweep_kc(labels, confs, TRAIN_CLASSES, 0.2)
+        want = apply_kc_device(labels, confs, kc).cpu().numpy()
+    got = np.stack([load_label_png(os.path.join(out, f"pseudo_{i:06d}.png"))
+                    for i in idx])
+    differ = int((got != want).sum())
+    print(f"phase 9 pseudo: {CLI_TARGET} images {HW[0]}x{HW[1]}, 3 sources "
+          f"from CLI checkpoints, soft, --p 0.2, batch {CLI_BATCH}: "
+          f"{CLI_TARGET / secs:.2f} img/s end to end ({secs:.3f} s: "
+          f"checkpoints {spans['load']:.3f} s, generation with the PNG "
+          f"decode {spans['generation']:.3f} s = "
+          f"{spans['generation'] / secs:.3f} of it, kc + PNG writes "
+          f"{secs - spans['load'] - spans['generation']:.3f} s; "
+          f"{CLI_TARGET / spans['generation']:.2f} img/s in generation) | "
+          f"kc {np.round(res['kc'], 4).tolist()} (in-process "
+          f"{np.round(kc, 4).tolist()}), kept {res['kept']:.4f} | launches "
+          f"{json.dumps({k: launches[k] for k in COUNTERS})} | label PNGs "
+          f"against the in-process sweep (deterministic cuDNN): {differ} of "
+          f"{got.size} pixels differ", flush=True)
+    if differ or not np.array_equal(res["kc"], kc):
+        raise AssertionError(f"pseudo: {differ} label pixels differ from the "
+                             f"in-process sweep, kc {res['kc']} vs {kc}")
+
+
+def cli_train_run(root, ckpt_dir=None, **cfg_kw):
+    """The CLI `train` command's run, in process: the same data set,
+    model, initial weights and loop settings."""
+    from mspl_tpu_torch.data.datasets import build_dataset
+    from mspl_tpu_torch.engine.train import (TrainLoopConfig,
+                                             train_segmentation)
+
+    ds = build_dataset("greenhouse", root, os.path.join(root, "labeled.txt"),
+                       size_wh=(HW[1], HW[0]))
+    model = init_model(build_segmentation_model("espnetv2", TRAIN_CLASSES),
+                       torch.Generator().manual_seed(0))
+    cfg = TrainLoopConfig(epochs=CLI_TRAIN["epochs"], crop_hw=HW,
+                          ckpt_dir=ckpt_dir, verbose=False,
+                          ckpt_every_steps=CLI_TRAIN["every"], **cfg_kw)
+    res = train_segmentation(
+        model, None, DataLoader(ds, CLI_TRAIN["batch"], shuffle=True, seed=0),
+        DataLoader(ds, CLI_TRAIN["batch"]), TRAIN_CLASSES, cfg,
+        device="cuda")
+    return model, res
+
+
+def cli_train(root, tally) -> str:
+    """`train` at the CLI's settings, then the mid-epoch resume in process
+    against the uninterrupted run; returns the checkpoint dir."""
+    import mspl_tpu_torch.engine.train as et
+    from mspl_tpu_torch import cli
+
+    ck = os.path.join(root, "ck_train")
+    step_ms = []
+    real_make = et.make_train_step
+
+    def timed_make(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+
+        def timed_step(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*a, **k)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed_step
+
+    lst = os.path.join(root, "labeled.txt")
+    with swapped([(et, "make_train_step", timed_make)]):
+        res, secs, launches = _cli(
+            ["train", "--dataset", "greenhouse", "--data-root", root,
+             "--train-list", lst, "--val-list", lst, "--batch-size",
+             str(CLI_TRAIN["batch"]), "--epochs", str(CLI_TRAIN["epochs"]),
+             "--ckpt-dir", ck, "--ckpt-every-steps",
+             str(CLI_TRAIN["every"])] + CLI_SIZE, tally)
+    files = sorted(os.listdir(ck))
+    for name in ("model_best.msgpack", "model_best.json",
+                 "checkpoint_last.msgpack", "checkpoint_best.msgpack"):
+        if name not in files:
+            raise AssertionError(f"train: no {name} in {files}")
+    n_steps = len(step_ms)
+    print(f"phase 9 train: ESPNetv2-s2.0 greenhouse, {CLI_LABELED} images "
+          f"at {HW[0]}x{HW[1]}, batch {CLI_TRAIN['batch']}, "
+          f"{CLI_TRAIN['epochs']} epochs ({n_steps} steps), a checkpoint "
+          f"every step: {secs:.3f} s; steps {np.median(step_ms[1:]):.2f} ms "
+          f"median ({CLI_TRAIN['batch'] / np.median(step_ms[1:]) * 1e3:.2f} "
+          f"img/s; first {step_ms[0]:.2f}, all "
+          f"{[round(t, 2) for t in step_ms]}) | val mIoU by epoch "
+          f"{[round(h['miou'], 4) for h in res['history']]} | files {files} "
+          f"| launches {json.dumps({k: launches[k] for k in COUNTERS})}",
+          flush=True)
+
+    # the resume: cut by max_steps mid-epoch, resumed to the end, against
+    # the uninterrupted run (twice, to see whether a step repeats its bits)
+    steps_per_epoch = -(-CLI_LABELED // CLI_TRAIN["batch"])
+    cut = steps_per_epoch + 1
+    with deterministic_cudnn():
+        whole, _ = cli_train_run(root)
+        again, _ = cli_train_run(root)
+        rd = os.path.join(root, "ck_resume")
+        cli_train_run(root, rd, max_steps=cut)
+        with open(os.path.join(rd, "checkpoint_last.json")) as f:
+            meta = json.load(f)
+        if meta.get("step_in_epoch") != cut - steps_per_epoch:
+            raise AssertionError(f"resume: the cut run's checkpoint {meta}")
+        resumed, res_r = cli_train_run(root, rd, resume=True)
+    pa, pb, pr = ({k: v.detach() for k, v in m.named_parameters()}
+                  for m in (whole, again, resumed))
+    repeat = all(torch.equal(pa[k], pb[k]) for k in pa)
+    sa, sr = whole.state_dict(), resumed.state_dict()
+    equal = all(torch.equal(sa[k], sr[k]) for k in sa
+                if not k.endswith("num_batches_tracked"))
+    start = {k: v.detach() for k, v in init_model(
+        build_segmentation_model("espnetv2", TRAIN_CLASSES),
+        torch.Generator().manual_seed(0)).cuda().named_parameters()}
+    gap = update_gap(pr, pa, start)
+    noise = update_gap(pb, pa, start)
+    gaps = param_gaps(pr, pa, start)
+    worst = max(gaps, key=lambda k: float(gaps[k]))
+    kind = ("bit-equal" if equal else
+            f"not bit-equal: largest parameter gap {float(gaps[worst]):.3g} "
+            f"of the update ({worst}), limit TRAIN_TOL "
+            f"{TRAIN_TOL['param']}")
+    print(f"phase 9 resume: cut after {cut} steps (epoch 1, step 1; "
+          f"checkpoint {meta}), resumed to {res_r['state'].step}; the "
+          f"uninterrupted run twice with deterministic cuDNN: "
+          f"{'bit-equal' if repeat else 'not bit-equal'} (update gap "
+          f"{noise:.3g}) | resumed against uninterrupted: {kind} (update "
+          f"gap {gap:.3g})", flush=True)
+    if repeat and not equal:
+        raise AssertionError("resume: the step repeats its bits but the "
+                             "resumed run differs from the uninterrupted one")
+    if not repeat and float(gaps[worst]) > TRAIN_TOL["param"]:
+        raise AssertionError(f"resume: parameter gap {float(gaps[worst])} "
+                             f"at {worst}")
+    # the CLI's own run is the same run
+    model, _, _ = cli.load_model_checkpoint(ck)
+    cli_equal = all(torch.equal(t.cuda(), pa[k])
+                    for k, t in model.named_parameters())
+    print(f"phase 9 train: the CLI's model_best against the in-process "
+          f"run: {'bit-equal' if cli_equal else 'differs'} (the CLI ran "
+          "with default cuDNN)", flush=True)
+    return ck
+
+
+def cli_eval_infer(root, ck, tally):
+    """`eval` against in-process `evaluate` on the loaded model, `infer`
+    against the argmax of the in-process forward's softmax over the same
+    batches."""
+    from mspl_tpu_torch import cli
+    from mspl_tpu_torch.data.datasets import build_dataset
+    from mspl_tpu_torch.data.label_io import load_label_png
+    from mspl_tpu_torch.data.transforms import normalize
+    from mspl_tpu_torch.engine.train import evaluate
+
+    lst = os.path.join(root, "labeled.txt")
+    out = os.path.join(root, "infer")
+    b = CLI_TRAIN["batch"]
+    with deterministic_cudnn():
+        res, secs, launches = _cli(
+            ["eval", "--checkpoint", ck, "--data-root", root, "--val-list",
+             lst, "--batch-size", str(b)] + CLI_SIZE, tally)
+        model, _, meta = cli.load_model_checkpoint(ck)
+        ds = build_dataset("greenhouse", root, lst, size_wh=(HW[1], HW[0]))
+        _, miou = evaluate(make_eval_step(model, 3, device="cuda"),
+                           DataLoader(ds, b), 3)
+        _, isecs, ilaunch = _cli(
+            ["infer", "--checkpoint", ck, "--data-root", root, "--list", lst,
+             "--out-dir", out, "--batch-size", str(b)] + CLI_SIZE, tally)
+        imgs = np.stack([ds.load(i)[0] for i in range(len(ds))])
+        model = model.cuda().eval()
+
+        def forward(lo, hi):
+            with torch.inference_mode():
+                return model(normalize(
+                    torch.from_numpy(imgs[lo:hi]).cuda())).float()
+
+        # the reference runs the CLI's batches: cuDNN picks its algorithms
+        # by shape, so one batch of 16 may round otherwise than two of 8
+        # and flip a near-tie
+        logits = torch.cat([forward(i, i + b) for i in range(0, len(ds), b)])
+        want = torch.softmax(logits, 1).argmax(1).cpu().numpy()
+        by_logits = logits.argmax(1).cpu().numpy()
+        whole = forward(0, len(ds))
+        whole_gap = float((whole - logits).abs().max())
+        one_batch = torch.softmax(whole, 1).argmax(1).cpu().numpy()
+    got = np.stack([load_label_png(os.path.join(out, f"pred_{i:06d}.png"))
+                    for i in range(len(ds))])
+    n_files = len([f for f in os.listdir(out) if f.startswith("pred_")])
+    print(f"phase 9 eval: mIoU {res['miou']!r} (in-process {miou!r}), "
+          f"{secs:.3f} s | infer: {n_files} prediction PNGs, "
+          f"{int((got != want).sum())} pixels differ from the in-process "
+          f"forward's softmax argmax in the same batches of {b} "
+          f"({(got == by_logits).mean():.6f} equal to the logits' argmax; "
+          f"not gated: {int((got != one_batch).sum())} differ from one "
+          f"forward of all {len(ds)}, whose logits differ by up to "
+          f"{whole_gap:.3g}), {isecs:.3f} s | launches eval "
+          f"{json.dumps({k: launches[k] for k in COUNTERS})}, infer "
+          f"{json.dumps({k: ilaunch[k] for k in COUNTERS})}", flush=True)
+    faults = [what for what, bad in (
+        ("eval's mIoU", res["miou"] != miou),
+        (f"infer wrote {n_files} of {CLI_LABELED} PNGs",
+         n_files != CLI_LABELED),
+        ("infer's labels", not np.array_equal(got, want))) if bad]
+    if faults:
+        raise AssertionError("eval/infer differ from the in-process runs: "
+                             + ", ".join(faults))
+
+
+def cli_selftrain(root, ckpts, ck, tally):
+    """One `selftrain` round from the trained target with the three
+    sources; its round checkpoint, label PNGs and train list."""
+    st_ck, st_out = os.path.join(root, "st_ck"), os.path.join(root, "st_out")
+    res, secs, launches = _cli(
+        ["selftrain", "--checkpoints", *ckpts, "--data-root", root,
+         "--target-list", os.path.join(root, "target.txt"),
+         "--val-list", os.path.join(root, "labeled.txt"),
+         "--init-checkpoint", ck, "--rounds", "1", "--epochs", "1",
+         "--ckpt-dir", st_ck, "--out-dir", st_out] + CLI_SIZE, tally)
+    r0 = os.path.join(st_out, "round0")
+    pngs = len([f for f in os.listdir(r0) if f.startswith("pseudo_")])
+    have = [os.path.exists(p) for p in (
+        os.path.join(st_ck, "round0", "checkpoint_last.msgpack"),
+        os.path.join(st_ck, "model_best.msgpack"),
+        os.path.join(r0, "train_list.txt"))]
+    h = res["history"][0]
+    print(f"phase 9 selftrain: 1 round of 1 epoch ({CLI_TARGET} target "
+          f"images, batch 8, {-(-CLI_TARGET // 8)} steps): {secs:.3f} s | "
+          f"round 0: p {h['p']:.2f}, kc {[round(k, 4) for k in h['kc']]}, "
+          f"kept {h['frac_kept']:.4f}, {h['n_sources']} models, val mIoU "
+          f"{h['miou']:.4f} | {pngs} label PNGs, round checkpoint, model "
+          f"checkpoint, train list: {have} | launches "
+          f"{json.dumps({k: launches[k] for k in COUNTERS})}", flush=True)
+    if pngs != CLI_TARGET or not all(have):
+        raise AssertionError(f"selftrain: {pngs} PNGs, files {have}")
+
+
+def cli_pth_round_trip(root, ck, tally):
+    """`export-torch` then `import-torch` of the trained target and of a
+    full-width DeepLabV3 checkpoint: the re-imported trees bit-equal."""
+    from mspl_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                 save_checkpoint)
+    from mspl_tpu_torch.utils.flax_bridge import flax_variables
+
+    dl_ck = os.path.join(root, "ck_deeplab")
+    dl = init_model(build_segmentation_model("deeplabv3", TRAIN_CLASSES),
+                    torch.Generator().manual_seed(SEED))
+    save_checkpoint(dl_ck, flax_variables(dl), {
+        "dataset": "greenhouse", "model": "deeplabv3",
+        "num_classes": TRAIN_CLASSES, "input_hw": list(HW),
+        "in_channels": 3}, name="model_best")
+    lines = []
+    for name, src, model in (("espnetv2", ck, "espnetv2"),
+                             ("deeplabv3", dl_ck, "deeplabv3")):
+        pth = os.path.join(root, f"{name}.pth")
+        imp = os.path.join(root, f"imported_{name}")
+        t0 = time.perf_counter()
+        exp, _, _ = _cli(["export-torch", "--checkpoint", src, "--out", pth],
+                         tally)
+        _cli(["import-torch", "--pth", pth, "--model", model,
+              "--num-classes", str(TRAIN_CLASSES), "--dataset",
+              "greenhouse", "--out-dir", imp], tally)
+        secs = time.perf_counter() - t0
+        a, _ = load_checkpoint(os.path.join(src, "model_best.msgpack"))
+        b, _ = load_checkpoint(os.path.join(imp, "model_best.msgpack"))
+        same = _same_tree(a, b)
+        lines.append(f"{name} {exp['n_tensors']} tensors "
+                     f"{'bit-equal' if same else 'DIFFER'} ({secs:.2f} s)")
+        if not same:
+            raise AssertionError(f"{name}: re-imported variables differ")
+    print("phase 9 export-torch then import-torch: " + "; ".join(lines),
+          flush=True)
+
+
+def phase_cli(smi: str, sources):
+    """Phase 9: the port's command line (`mspl_tpu_torch.cli.main`) on the
+    card, at full width, in a temporary directory: greenhouse PNGs and
+    lists through the port's codec; phase 4's three sources written as CLI
+    checkpoints; `pseudo` (256 images, batch 128) gated pixel for pixel
+    against the in-process sweep; `train` (16 images, 3 epochs, a
+    checkpoint every step) and its mid-epoch resume in process against the
+    uninterrupted run; `eval` and `infer` against the in-process model;
+    one `selftrain` round; `export-torch` and `import-torch` of the trained
+    target and of a full-width DeepLabV3.  Returns each kernel's launches
+    over the phase's commands."""
+    import tempfile
+
+    from mspl_tpu_torch.data import native_io
+    from mspl_tpu_torch.utils.checkpoint import save_checkpoint
+    from mspl_tpu_torch.utils.flax_bridge import flax_variables
+
+    t_phase = time.perf_counter()
+    tally = {k: 0 for k in ALL_COUNTERS}
+    if native_io.available():
+        png = f"native ({native_io.lib_path().name}, built from " \
+              "native/mspl_io.cc)"
+    else:
+        try:
+            import PIL  # noqa: F401
+        except ImportError as e:
+            raise AssertionError("no PNG path: the native codec did not "
+                                 "build (mspl_tpu_torch/_build/mspl_io.log)"
+                                 " and PIL is missing") from e
+        png = "PIL (the native codec did not build)"
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        data = _write_cli_data(root)
+        ckpts = []
+        for s, (name, c) in zip(sources, SOURCES):
+            ck = os.path.join(root, f"ck_{name}")
+            save_checkpoint(ck, flax_variables(s.model), {
+                "dataset": name, "model": "espnetv2", "s": 2.0,
+                "num_classes": c, "bf16": True, "input_hw": list(HW),
+                "in_channels": 3}, name="model_best")
+            ckpts.append(ck)
+        print(f"phase 9 data: {CLI_TARGET} target and {CLI_LABELED} "
+              f"labeled PNGs at {HW[1]}x{HW[0]} and 3 source checkpoints "
+              f"written in {time.perf_counter() - t0:.2f} s | PNG path: "
+              f"{png}", flush=True)
+        cli_pseudo(root, ckpts, sources, data, tally)
+        ck = cli_train(root, tally)
+        cli_eval_infer(root, ck, tally)
+        cli_selftrain(root, ckpts, ck, tally)
+        cli_pth_round_trip(root, ck, tally)
+    print(f"phase 9 took {time.perf_counter() - t_phase:.1f} s on {smi} | "
+          f"launches over the CLI commands {json.dumps(tally)}", flush=True)
+    return tally
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batches", type=int, default=8,
@@ -2581,10 +3070,12 @@ def main():
     train_launches = phase_train(smi, args.profile)
     round_launches = phase_round(smi, sources, args.profile)
     deeplab_launches = phase_deeplab(smi, sources, args.profile)
+    cli_launches = phase_cli(smi, sources)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["round_launches"] = round_launches[r["name"]]
         r["deeplab_round_launches"] = deeplab_launches[r["name"]]
+        r["cli_launches"] = cli_launches[r["name"]]
         if r["name"] == "pyr_branches":
             r["train_launches"] = train_launches
     print(json.dumps({"kernels": rows}), flush=True)

@@ -12,7 +12,10 @@ Entry points run on the card unless the caller passes `device="cpu"`:
 `pseudo.generate.make_source`, `PseudoLabelGenerator`,
 `generate_pseudo_labels`, `engine.train.create_train_state`,
 `make_train_step`, `make_eval_step` and `train_segmentation`, and
-`pseudo.self_training.self_training`, which move the model there.
+`pseudo.self_training.self_training`, which move the model there; the
+command line (`python -m mspl_tpu_torch.cli`) runs on the card and fails
+without one.
 """
 
-__all__ = ["data", "engine", "layers", "models", "ops", "pseudo", "utils"]
+__all__ = ["cli", "data", "engine", "layers", "models", "ops", "pseudo",
+           "utils"]

@@ -6,6 +6,8 @@ Greenhouse target space: 0 = plant, 1 = artificial_object, 2 = ground,
 [num_src, num_target + 1] 0/1 pooling table that sums the probability mass
 of the source classes mapped to each target class; its last column collects
 the mass mapped to ignore.  The fused pseudo-label kernel consumes it.
+`label_conversion_lut` and `convert_label_map` convert integer label maps,
+and `CITYSCAPES_ID_TO_TRAINID` reads stock Cityscapes labelIds PNGs.
 """
 
 from __future__ import annotations
@@ -53,6 +55,14 @@ _LUTS: Dict[str, Tuple[int, ...]] = {
     "greenhouse": GREENHOUSE_IDENTITY,
 }
 
+# Standard Cityscapes raw-id (0..33) -> train-id (0..18 / 255) table
+CITYSCAPES_ID_TO_TRAINID = np.full(256, 255, np.int32)
+for _raw, _train in {
+    7: 0, 8: 1, 11: 2, 12: 3, 13: 4, 17: 5, 19: 6, 20: 7, 21: 8, 22: 9,
+    23: 10, 24: 11, 25: 12, 26: 13, 27: 14, 28: 15, 31: 16, 32: 17, 33: 18,
+}.items():
+    CITYSCAPES_ID_TO_TRAINID[_raw] = _train
+
 
 def label_conversion_lut(src: str,
                          num_target: int = GREENHOUSE_NUM_CLASSES) -> np.ndarray:
@@ -81,3 +91,12 @@ def label_conversion_matrix(src: str,
     """float32 [num_src, num_target+1] probability-pooling matrix; the last
     column accumulates mass that maps to ignore."""
     return _conversion_matrix_cached(src, num_target)
+
+
+def convert_label_map(labels: np.ndarray, src: str) -> np.ndarray:
+    """Convert an integer label map through the source -> greenhouse LUT
+    (ignore label 255 passes through)."""
+    lut = label_conversion_lut(src)
+    full = np.full(256, GREENHOUSE_IGNORE, np.int32)
+    full[: lut.shape[0]] = lut
+    return full[labels.astype(np.int32)]

@@ -1,6 +1,7 @@
 """Device-side image transforms (port of mspl_tpu/data/transforms.py):
-`normalize`, and the train-time fused RandomScale + RandomCrop +
-RandomFlip.
+`normalize`, the train-time fused RandomScale + RandomCrop + RandomFlip,
+and the eval transforms (`eval_transform`: normalize, then a half-pixel
+bilinear resize; `eval_label_transform`: a nearest resize).
 
 As in the reference, scale and crop are one resampling step: a scale s is
 drawn, a crop window of crop / s source pixels is placed at (y0, x0), and
@@ -23,6 +24,7 @@ from typing import Tuple
 
 import torch
 
+from mspl_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 from mspl_tpu_torch.utils.registry import (IGNORE_LABEL, IMAGENET_MEAN,
                                            IMAGENET_STD)
 
@@ -145,3 +147,20 @@ def train_transform(imgs: torch.Tensor, labels: torch.Tensor,
                                  crop_hw, generator, scale_range)
     return scale_crop_flip(normalize(imgs, mean, std), labels, crop_hw,
                            *draws)
+
+
+def eval_transform(
+    imgs: torch.Tensor,
+    size_hw: Tuple[int, int],
+    mean: Tuple[float, float, float] = IMAGENET_MEAN,
+    std: Tuple[float, float, float] = IMAGENET_STD,
+) -> torch.Tensor:
+    """Eval/inference pipeline: uint8/float [B,H,W,C] -> normalize ->
+    half-pixel bilinear resize to `size_hw`, as float32 [B,C,H',W']."""
+    return resize_bilinear(normalize(imgs, mean, std), size_hw,
+                           align_corners=False)
+
+
+def eval_label_transform(labels: torch.Tensor,
+                         size_hw: Tuple[int, int]) -> torch.Tensor:
+    return resize_nearest(labels, size_hw)

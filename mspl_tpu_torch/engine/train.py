@@ -28,8 +28,15 @@ on what ran before it.
 
 `train_segmentation` is the epoch loop: per epoch the loader's epoch
 pinned, its batches, the val mIoU, the best mIoU and a history line, with
-`max_steps` as a hard stop.  Checkpoints (`ckpt_dir`, `resume`,
-`ckpt_every_steps`: ROADMAP A.3), the device mesh (A.6), `remat` and
+`max_steps` as a hard stop.  With `ckpt_dir` it writes the train state
+after every epoch (and the best one), and every `ckpt_every_steps` steps
+within an epoch; `resume` restores the last one, mid-epoch at the recorded
+step, as the reference does.  The state is written in the layout of the
+JAX package's flax `TrainState` (`train_state_tree`), so either package
+resumes from the other's checkpoint: SGD's momentum buffer is optax's
+`trace` (no buffer yet is a zero trace: both take the same first step),
+AdamW's `exp_avg`/`exp_avg_sq` are `mu`/`nu`, and its step and the
+schedule's are optax's counts.  The device mesh (ROADMAP A.6), `remat` and
 `bn_groups` (A.7) belong to later slices of the port and raise.
 """
 
@@ -48,6 +55,13 @@ from mspl_tpu_torch.engine.losses import segmentation_loss
 from mspl_tpu_torch.engine.metrics import MIOU, confusion_matrix
 from mspl_tpu_torch.engine.schedules import Schedule, build_schedule
 from mspl_tpu_torch.pseudo.generate import load_variables
+from mspl_tpu_torch.utils.checkpoint import (has_checkpoint, load_checkpoint,
+                                             save_checkpoint)
+from mspl_tpu_torch.utils.flax_bridge import (flax_variables,
+                                              load_flax_variables, to_flax,
+                                              to_port)
+from mspl_tpu_torch.utils.print_utils import (print_info_message,
+                                              print_log_message)
 from mspl_tpu_torch.utils.tb_logger import ScalarLogger
 
 _LATER = "belongs to a later slice of the PyTorch port (ROADMAP {})"
@@ -84,6 +98,72 @@ def create_train_state(model: nn.Module, optimizer: str, schedule: Schedule,
     return TrainState(model, build_optimizer(
         optimizer, model.parameters(), schedule, momentum, weight_decay),
         schedule)
+
+
+def _buffers(state: TrainState, name: str) -> Dict[str, torch.Tensor]:
+    """{parameter key: the optimizer's `name` buffer} where it has one."""
+    opt = state.optimizer
+    return {k: opt.state[p][name] for k, p in state.model.named_parameters()
+            if name in opt.state.get(p, {})}
+
+
+def _params_tree(state: TrainState, tensors) -> Dict:
+    return to_flax(state.model, tensors, ("params",))["params"]
+
+
+def train_state_tree(state: TrainState) -> Dict[str, Any]:
+    """The state as the JAX package's flax `TrainState` serializes it:
+    {step, params, opt_state, batch_stats}, nested dicts of numpy arrays,
+    the optimizer state in optax's layout (sgd: `add_decayed_weights`
+    then `sgd`; adam: `adamw`)."""
+    variables = flax_variables(state.model)
+    count = np.asarray(state.step, np.int32)
+    if isinstance(state.optimizer, torch.optim.AdamW):
+        opt_state = {"0": {"count": count,
+                           "mu": _params_tree(state, _buffers(state,
+                                                              "exp_avg")),
+                           "nu": _params_tree(state, _buffers(
+                               state, "exp_avg_sq"))},
+                     "1": {}, "2": {"count": count}}
+    elif isinstance(state.optimizer, torch.optim.SGD):
+        opt_state = {"0": {}, "1": {
+            "0": {"trace": _params_tree(state, _buffers(state,
+                                                        "momentum_buffer"))},
+            "1": {"count": count}}}
+    else:
+        raise TypeError(f"no flax layout for {type(state.optimizer)}")
+    return {"step": count if state.step else 0,
+            "params": variables["params"], "opt_state": opt_state,
+            "batch_stats": variables["batch_stats"]}
+
+
+def restore_train_state(state: TrainState, tree) -> TrainState:
+    """Load a `train_state_tree` (written by either package) into `state`
+    in place: the model's parameters and statistics, the optimizer's
+    buffers and the step count."""
+    model, opt = state.model, state.optimizer
+    load_flax_variables(model, tree)
+    step = int(np.asarray(tree["step"]))
+    opt_state = tree["opt_state"]
+    opt.state.clear()
+    params = dict(model.named_parameters())
+    if step and isinstance(opt, torch.optim.AdamW):
+        adam = opt_state["0"]
+        mu = to_port(model, {"params": adam["mu"]}, ("params",))
+        nu = to_port(model, {"params": adam["nu"]}, ("params",))
+        for k, p in params.items():
+            opt.state[p] = {
+                "step": torch.tensor(float(np.asarray(adam["count"])),
+                                     dtype=torch.float32),
+                "exp_avg": mu[k].to(p.device),
+                "exp_avg_sq": nu[k].to(p.device)}
+    elif step and isinstance(opt, torch.optim.SGD):
+        trace = to_port(model, {"params": opt_state["1"]["0"]["trace"]},
+                        ("params",))
+        for k, p in params.items():
+            opt.state[p] = {"momentum_buffer": trace[k].to(p.device)}
+    state.step = step
+    return state
 
 
 def _on(batch: Dict, key: str, device: torch.device):
@@ -208,14 +288,16 @@ class TrainLoopConfig:
     reg_mode: str = "none"
     reg_weight: float = 0.0
     seed: int = 0
-    ckpt_dir: Optional[str] = None    # checkpoints: ROADMAP A.3
+    ckpt_dir: Optional[str] = None
     log_dir: Optional[str] = None
-    resume: bool = False              # A.3
+    resume: bool = False
     eval_every: int = 1
     augment: bool = True
     remat: bool = False               # A.7
     verbose: bool = True
-    ckpt_every_steps: int = 0         # A.3
+    # also checkpoint every N optimizer steps within an epoch (0: per epoch
+    # only); `resume` re-enters the epoch at the recorded step
+    ckpt_every_steps: int = 0
     # hard stop after N optimizer steps
     max_steps: Optional[int] = None
     bn_groups: int = 1                # A.7
@@ -239,10 +321,6 @@ def train_segmentation(
     'history'}."""
     if mesh is not None:
         raise NotImplementedError(f"a device mesh {_LATER.format('A.6')}")
-    if cfg.ckpt_dir or cfg.resume or cfg.ckpt_every_steps:
-        raise NotImplementedError(
-            f"checkpoints (ckpt_dir, resume, ckpt_every_steps) "
-            f"{_LATER.format('A.3')}")
     if cfg.remat or cfg.bn_groups != 1:
         raise NotImplementedError(
             f"remat (activation checkpointing) and bn_groups (ghost-batch "
@@ -255,29 +333,57 @@ def train_segmentation(
                               steps_per_epoch=steps_per_epoch)
     state = create_train_state(model, cfg.optimizer, schedule, cfg.momentum,
                                cfg.weight_decay, device=device)
+
+    start_epoch, start_step_in_epoch, best_miou = 0, 0, -1.0
+    if cfg.resume and cfg.ckpt_dir and has_checkpoint(cfg.ckpt_dir):
+        tree, meta = load_checkpoint(cfg.ckpt_dir)
+        restore_train_state(state, tree)
+        ck_epoch = int(meta.get("epoch", 0))
+        sie = int(meta.get("step_in_epoch", 0))
+        best_miou = float(meta.get("best_miou", -1.0))
+        if 0 < sie < steps_per_epoch:
+            # mid-epoch checkpoint: re-enter the same epoch at the recorded
+            # batch; the loader's order is a function of seed + epoch, so
+            # the remaining batches are the same
+            start_epoch, start_step_in_epoch = ck_epoch, sie
+            print_info_message(f"resumed mid-epoch {ck_epoch} at step {sie}, "
+                               f"best mIoU {best_miou:.4f}")
+        else:
+            start_epoch = ck_epoch + 1
+            print_info_message(f"resumed from epoch {ck_epoch}, "
+                               f"best mIoU {best_miou:.4f}")
+
     train_step = make_train_step(
         model, class_weights=class_weights, reg_mode=cfg.reg_mode,
         reg_weight=cfg.reg_weight, augment=cfg.augment, crop_hw=cfg.crop_hw,
         scale_range=cfg.scale_range, device=device)
     eval_step = make_eval_step(model, num_classes, device=device)
     logger = ScalarLogger(cfg.log_dir)
-    best_miou = -1.0
     history = []
     stopped = False
 
-    for epoch in range(cfg.epochs):
+    for epoch in range(start_epoch, cfg.epochs):
         t0 = time.time()
         losses = []
         # the loader's shuffle order is a function of seed + epoch
         train_loader.epoch = epoch
-        batches = (train_loader.iter_batches(0)
+        skip = start_step_in_epoch if epoch == start_epoch else 0
+        batches = (train_loader.iter_batches(skip)
                    if hasattr(train_loader, "iter_batches")
                    else train_loader)
-        for b, batch in enumerate(batches):
+        for b, batch in enumerate(batches, start=skip):
             step_i = epoch * steps_per_epoch + b
             state, metrics = train_step(state, batch,
                                         step_generator(cfg.seed, step_i))
             losses.append(metrics["loss"])
+            done_in_epoch = b + 1
+            if (cfg.ckpt_every_steps and cfg.ckpt_dir
+                    and done_in_epoch < steps_per_epoch
+                    and done_in_epoch % cfg.ckpt_every_steps == 0):
+                save_checkpoint(
+                    cfg.ckpt_dir, train_state_tree(state),
+                    {"epoch": epoch, "step_in_epoch": done_in_epoch,
+                     "best_miou": best_miou})
             if cfg.max_steps is not None and step_i + 1 >= cfg.max_steps:
                 stopped = True
                 break
@@ -296,12 +402,19 @@ def train_segmentation(
         is_best = miou is not None and miou > best_miou
         if is_best:
             best_miou = miou
+        if cfg.ckpt_dir:
+            save_checkpoint(
+                cfg.ckpt_dir, train_state_tree(state),
+                {"epoch": epoch, "best_miou": best_miou,
+                 "miou": miou if miou is not None else -1.0},
+                is_best=is_best)
         history.append({"epoch": epoch, "loss": mean_loss, "miou": miou,
                         "lr": lr_now, "sec": time.time() - t0})
         if cfg.verbose:
-            print(f"epoch {epoch}: loss {mean_loss:.4f} lr {lr_now:.5f}"
-                  + (f" val mIoU {miou:.4f}{' *' if is_best else ''}"
-                     if miou is not None else ""), flush=True)
+            print_log_message(
+                f"epoch {epoch}: loss {mean_loss:.4f} lr {lr_now:.5f}"
+                + (f" val mIoU {miou:.4f}{' *' if is_best else ''}"
+                   if miou is not None else ""))
 
     logger.close()
     return {"state": state, "best_miou": best_miou, "history": history}

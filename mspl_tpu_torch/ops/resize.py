@@ -7,7 +7,10 @@ and W with einsum in the tensor's dtype: bf16 operands accumulate in f32 in
 the matmul and round once per pass, as the JAX `_mm` convention does.  The
 index/weight form of the same operators (`interp_taps`, `adaptive_bins`)
 feeds the CUDA kernels, which gather instead of multiplying by mostly-zero
-matrices.
+matrices.  `resize_nearest` (label maps, the floor convention of
+`F.interpolate(mode="nearest")`), `resize_bilinear_cm` (channel-major in
+and out) and `resize_bilinear_to_cm` (NHWC in, channel-major out) serve the
+eval transforms.
 """
 
 from __future__ import annotations
@@ -47,6 +50,13 @@ def _adaptive_avg_matrix(in_size: int, out_size: int) -> np.ndarray:
         hi = -((-(o + 1) * in_size) // out_size)  # ceil
         mat[o, lo:hi] = 1.0 / (hi - lo)
     return mat.astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    # floor convention of F.interpolate(mode="nearest")
+    idx = np.floor(np.arange(out_size, dtype=np.float64) * (in_size / out_size))
+    return np.clip(idx, 0, in_size - 1).astype(np.int64)
 
 
 @lru_cache(maxsize=None)
@@ -128,3 +138,45 @@ def adaptive_avg_pool(x: torch.Tensor, size_hw: Tuple[int, int]) -> torch.Tensor
     if w_in != w_out:
         x = _mm("ow,bchw->bcho", _adaptive_avg_matrix, (w_in, w_out), x)
     return x
+
+
+def resize_bilinear_cm(x: torch.Tensor, size_hw: Tuple[int, int],
+                       align_corners: bool = True) -> torch.Tensor:
+    """Bilinear resize of channel-major [B, C, H, W] input, staying
+    channel-major (H first, then W)."""
+    return resize_bilinear(x, size_hw, align_corners)
+
+
+def resize_bilinear_to_cm(x: torch.Tensor, size_hw: Tuple[int, int],
+                          align_corners: bool = True) -> torch.Tensor:
+    """Bilinear resize of NHWC [B, H, W, C] input to channel-major
+    [B, C, H', W']: the H pass writes the channel-major tensor."""
+    if x.dim() != 4:
+        raise ValueError(f"expected NHWC input, got shape {tuple(x.shape)}")
+    h_in, w_in = x.shape[1], x.shape[2]
+    h_out, w_out = size_hw
+    if h_in != h_out:
+        x = _mm("oh,bhwc->bcow", _interp_matrix,
+                (h_in, h_out, align_corners), x)
+    else:
+        x = x.permute(0, 3, 1, 2)
+    if w_in != w_out:
+        x = _mm("ow,bchw->bcho", _interp_matrix,
+                (w_in, w_out, align_corners), x)
+    return x.contiguous()
+
+
+def resize_nearest(x: torch.Tensor, size_hw: Tuple[int, int]) -> torch.Tensor:
+    """Nearest-neighbour resize of HW / NHW label maps (the last two dims)
+    or NCHW feature maps, with the floor convention of
+    `F.interpolate(mode="nearest")`."""
+    if x.dim() not in (2, 3, 4):
+        raise ValueError(f"unsupported rank for resize_nearest: "
+                         f"{tuple(x.shape)}")
+    h_in, w_in = x.shape[-2], x.shape[-1]
+    h_out, w_out = size_hw
+    if (h_in, w_in) == (h_out, w_out):
+        return x
+    hi = torch.from_numpy(_nearest_index(h_in, h_out)).to(x.device)
+    wi = torch.from_numpy(_nearest_index(w_in, w_out)).to(x.device)
+    return x.index_select(-2, hi).index_select(-1, wi)

@@ -65,21 +65,27 @@ def kc_from_histograms(hist, p: float, max_kc: float = 0.999) -> np.ndarray:
     return np.minimum(kc, max_kc).astype(np.float32)
 
 
-def apply_kc_device(labels, confs, kc, ignore_label: int = IGNORE_LABEL
-                    ) -> torch.Tensor:
-    """Re-threshold a whole label/confidence set with per-class kc (the
-    CBST keep rule): pixels with conf < kc[label] become `ignore_label`.
-    One compare and select on the labels' device; the output keeps the
-    labels' dtype (uint8 from the on-device generation path).  A label
+def _apply_kc_set(labels: torch.Tensor, confs: torch.Tensor,
+                  kc: torch.Tensor, ignore_label: int) -> torch.Tensor:
+    """The CBST keep rule on tensors of one device: pixels with
+    conf < kc[label] become `ignore_label`, in the labels' dtype.  A label
     outside [0, len(kc)) other than `ignore_label` reads the nearest kc, as
     the reference's clamped gather does."""
+    safe = torch.where(labels == ignore_label, 0, labels).to(torch.int64)
+    thr = kc[safe.clamp(0, kc.numel() - 1)]
+    return torch.where(confs >= thr, labels,
+                       torch.full_like(labels, ignore_label))
+
+
+def apply_kc_device(labels, confs, kc, ignore_label: int = IGNORE_LABEL
+                    ) -> torch.Tensor:
+    """Re-threshold a whole label/confidence set with per-class kc: one
+    compare and select on the labels' device (`_apply_kc_set`); the output
+    keeps the labels' dtype (uint8 from the on-device generation path)."""
     labels = torch.as_tensor(labels)
     confs = torch.as_tensor(confs).to(labels.device)
     kc_t = torch.as_tensor(np.asarray(kc, np.float32), device=labels.device)
-    safe = torch.where(labels == ignore_label, 0, labels).to(torch.int64)
-    thr = kc_t[safe.clamp(0, kc_t.numel() - 1)]
-    return torch.where(confs >= thr, labels,
-                       torch.full_like(labels, ignore_label))
+    return _apply_kc_set(labels, confs, kc_t, ignore_label)
 
 
 def sweep_kc(labels, confs, num_classes: int, p: float,

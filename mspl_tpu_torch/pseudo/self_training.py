@@ -19,8 +19,10 @@ keeps it out of the ensemble's input-cast vote: with bf16 sources it takes
 the bf16-cast batch and computes in its own f32, and the fused pass reads
 its f32 logits beside the sources' bf16 ones.
 
-Checkpoints (`ckpt_dir`: ROADMAP A.3) and the device mesh (A.6) belong to
-later slices of the port and raise.
+With `ckpt_dir`, round r's fine-tune checkpoints its train state into
+`<ckpt_dir>/round{r}` (`train_segmentation`'s files, in the JAX package's
+format).  The device mesh (ROADMAP A.6) belongs to a later slice of the
+port and raises.
 """
 
 from __future__ import annotations
@@ -89,7 +91,7 @@ class SelfTrainConfig:
     on_device: bool = True
     seed: int = 0
     out_dir: Optional[str] = None  # dump label PNGs + train list per round
-    ckpt_dir: Optional[str] = None  # checkpoints: ROADMAP A.3
+    ckpt_dir: Optional[str] = None  # round r checkpoints into round{r}/
     use_pallas: bool = False
     verbose: bool = True
 
@@ -116,10 +118,6 @@ def self_training(
         raise NotImplementedError(
             "a device mesh belongs to a later slice of the PyTorch port "
             "(ROADMAP A.6)")
-    if cfg.ckpt_dir:
-        raise NotImplementedError(
-            "round checkpoints belong to a later slice of the PyTorch port "
-            "(ROADMAP A.3)")
     if variables is not None:
         load_variables(model, variables)
     model.to(device)
@@ -186,7 +184,9 @@ def self_training(
             scale_range=cfg.scale_range, lr=cfg.lr, scheduler=cfg.scheduler,
             optimizer=cfg.optimizer, weight_decay=cfg.weight_decay,
             reg_mode=cfg.reg_mode, reg_weight=cfg.reg_weight,
-            seed=cfg.seed + r, verbose=False)
+            seed=cfg.seed + r, verbose=False,
+            ckpt_dir=(os.path.join(cfg.ckpt_dir, f"round{r}")
+                      if cfg.ckpt_dir else None))
         res = train_segmentation(model, None, train_loader, val_loader,
                                  num_classes, tcfg, device=device)
         miou = res["best_miou"]

@@ -1,23 +1,33 @@
-"""Load a flax variable tree of the JAX package into the port's modules.
+"""The port's models in the JAX package's flax variable layout, both ways.
 
-`load_flax_variables(model, variables)` takes the `{"params",
-"batch_stats"}` tree of `mspl_tpu.models.ESPNetv2Segmentation` or
-`DeepLabV3` as nested dicts of numpy arrays (the caller converts JAX arrays
-with `np.asarray`; this package never imports JAX) and copies every leaf
-into the matching parameter or buffer of the port's model of that type,
-in place.
+`flax_leaves(model)` is the one walk between the two layouts: for every
+leaf of the flax `{"params", "batch_stats"}` tree of
+`mspl_tpu.models.ESPNetv2Segmentation` or `DeepLabV3` (or of one EESP
+unit, as the kernel tests load units) it yields the port's
+state-dict key that holds it, the index into that tensor's first dimension
+(or None), the flax path and the layout.  Everything else is built on it,
+so loading, export and the optimizer's buffers (`engine/train.py`) cannot
+drift apart:
+
+- `load_flax_variables(model, variables)` copies a tree of nested dicts of
+  numpy arrays (the caller converts JAX arrays with `np.asarray`; this
+  package never imports JAX) into the model, in place;
+- `flax_variables(model)` returns the tree flax would hold;
+- `to_port` / `to_flax` convert between a tree and {state-dict key:
+  tensor} for any collection, e.g. a momentum trace shaped like "params".
+The round trip port -> flax -> port is bit-exact.
+
+Layouts: `HWIO`, a conv kernel (grouped and depthwise ones included: flax
+keeps (kh, kw, cin/groups, cout), torch (cout, cin/groups, kh, kw), so an
+EESP depthwise kernel `dw_d{i}` is (3, 3, 1, n) against (n, 1, 3, 3) and
+`merge_cbr`'s grouped merge after the channel shuffle (3, 3, S, P) against
+(P, S, 3, 3)); `STACK`, one of the pyramid pool's branch kernels `dw_s{i}`
+(3, 3, 1, P), indexed by the scales in descending order, which the port
+stacks into one [S, 3, 3, P] tensor; `SAME` for everything else.
 
 A tree of an RGB-D model (a 4-channel stem) loads into a model built with
 `in_channels=4`; a tree and a model of different channel counts raise on
 the stem's shape.
-
-Conversions: conv kernels HWIO -> OIHW (grouped ones included: flax keeps
-them as (kh, kw, cin/groups, cout), torch as (cout, cin/groups, kh, kw));
-an EESP depthwise kernel `dw_d{i}` (3, 3, 1, n) -> (n, 1, 3, 3); the
-pyramid-pool branch kernels `dw_s{i}` (3, 3, 1, P), indexed by the scales
-sorted in descending order, stack into the [S, 3, 3, P] layout of the
-branch kernels; the `merge_cbr` kernel (3, 3, S, P) is the grouped merge
-after the channel shuffle, (P, S, 3, 3) in torch.
 
 DeepLab's leaves carry flax's auto-names in call order: a conv's kernel
 sits under `_Conv_i/Conv_0` (explicit names for `stem`, `downsample`,
@@ -30,167 +40,272 @@ pool and `_BN_5` the projection's; at the top level `_BN_0` is
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Iterator, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from mspl_tpu_torch.layers.conv_blocks import BR, C, CB, CBR, BatchNorm, PReLU
 from mspl_tpu_torch.layers.eesp import EESP, DownSampler
 from mspl_tpu_torch.layers.pyramid_pool import EfficientPWC, EfficientPyrPool
-from mspl_tpu_torch.models.deeplab import ASPP, Bottleneck, DeepLabV3
+from mspl_tpu_torch.models.deeplab import DeepLabV3
+
+HWIO, STACK, SAME = "hwio", "stack", "same"
+Path = Tuple[str, ...]
 
 
-def _copy(dst: torch.Tensor, src, what: str) -> None:
-    t = torch.from_numpy(np.asarray(src, np.float32))
-    if tuple(t.shape) != tuple(dst.shape):
-        raise ValueError(f"{what}: flax shape {tuple(t.shape)} != port shape "
-                         f"{tuple(dst.shape)}")
-    dst.copy_(t)
+class Leaf(NamedTuple):
+    key: str              # the port's state-dict key
+    index: Optional[int]  # into the key's first dim (STACK), else None
+    path: Path            # flax path, collection first
+    layout: str
 
 
-def _hwio(dst: torch.Tensor, kernel, what: str) -> None:
-    _copy(dst, np.transpose(np.asarray(kernel), (3, 2, 0, 1)), what)
+def _k(prefix: str, name: str) -> str:
+    return f"{prefix}.{name}" if prefix else name
 
 
-def _conv(conv: torch.nn.Conv2d, leaf: Mapping, what: str) -> None:
-    _hwio(conv.weight, leaf["kernel"], what)
-    if conv.bias is not None:
-        _copy(conv.bias, leaf["bias"], what + ".bias")
+def _conv(key: str, path: Path, bias: bool) -> Iterator[Leaf]:
+    yield Leaf(_k(key, "weight"), None, ("params",) + path + ("kernel",),
+               HWIO)
+    if bias:
+        yield Leaf(_k(key, "bias"), None, ("params",) + path + ("bias",),
+                   SAME)
 
 
-def _c(mod: C, p: Mapping, what: str) -> None:
-    _conv(mod.conv, p["Conv_0"], what)
+def _bn(key: str, path: Path) -> Iterator[Leaf]:
+    for name, coll, leaf in (("weight", "params", "scale"),
+                             ("bias", "params", "bias"),
+                             ("running_mean", "batch_stats", "mean"),
+                             ("running_var", "batch_stats", "var")):
+        yield Leaf(_k(key, name), None, (coll,) + path + (leaf,), SAME)
 
 
-def _bn(mod: BatchNorm, p: Mapping, s: Mapping, what: str) -> None:
-    _copy(mod.weight, p["scale"], what + ".scale")
-    _copy(mod.bias, p["bias"], what + ".bias")
-    _copy(mod.running_mean, s["mean"], what + ".mean")
-    _copy(mod.running_var, s["var"], what + ".var")
+def _prelu(key: str, path: Path) -> Iterator[Leaf]:
+    yield Leaf(_k(key, "alpha"), None, ("params",) + path + ("alpha",),
+               SAME)
 
 
-def _prelu(mod: PReLU, p: Mapping, what: str) -> None:
-    _copy(mod.alpha, p["alpha"], what + ".alpha")
+def _c(mod, key: str, path: Path) -> Iterator[Leaf]:
+    yield from _conv(_k(key, "conv"), path + ("Conv_0",),
+                     mod.conv.bias is not None)
 
 
-def _cb(mod: CB, p: Mapping, s: Mapping, what: str) -> None:
-    _c(mod.conv, p["C_0"], what)
-    _bn(mod.bn, p["BatchNorm_0"], s["BatchNorm_0"], what)
+def _cb(mod, key: str, path: Path) -> Iterator[Leaf]:
+    yield from _c(mod.conv, _k(key, "conv"), path + ("C_0",))
+    yield from _bn(_k(key, "bn"), path + ("BatchNorm_0",))
 
 
-def _cbr(mod: CBR, p: Mapping, s: Mapping, what: str) -> None:
-    _cb(mod.cb, p["CB_0"], s["CB_0"], what)
-    _prelu(mod.act, p["PReLU_0"], what)
+def _cbr(mod, key: str, path: Path) -> Iterator[Leaf]:
+    yield from _cb(mod.cb, _k(key, "cb"), path + ("CB_0",))
+    yield from _prelu(_k(key, "act"), path + ("PReLU_0",))
 
 
-def _br(mod: BR, p: Mapping, s: Mapping, what: str) -> None:
-    _bn(mod.bn, p["BatchNorm_0"], s["BatchNorm_0"], what)
-    _prelu(mod.act, p["PReLU_0"], what)
+def _br(key: str, path: Path) -> Iterator[Leaf]:
+    yield from _bn(_k(key, "bn"), path + ("BatchNorm_0",))
+    yield from _prelu(_k(key, "act"), path + ("PReLU_0",))
 
 
-def _eesp(mod: EESP, p: Mapping, s: Mapping, what: str) -> None:
-    _cbr(mod.proj_1x1, p["proj_1x1"], s["proj_1x1"], what + ".proj_1x1")
-    for i, wk in enumerate(mod.dw):
-        _hwio(wk, p[f"dw_d{i}_kernel"], f"{what}.dw_d{i}")
-    _br(mod.br_after_cat, p["br_after_cat"], s["br_after_cat"],
-        what + ".br_after_cat")
-    _cb(mod.conv_1x1_exp, p["conv_1x1_exp"], s["conv_1x1_exp"],
-        what + ".conv_1x1_exp")
+def _eesp(mod: EESP, key: str, path: Path) -> Iterator[Leaf]:
+    yield from _cbr(mod.proj_1x1, _k(key, "proj_1x1"), path + ("proj_1x1",))
+    for i in range(len(mod.dw)):
+        yield Leaf(_k(key, f"dw.{i}"), None,
+                   ("params",) + path + (f"dw_d{i}_kernel",), HWIO)
+    yield from _br(_k(key, "br_after_cat"), path + ("br_after_cat",))
+    yield from _cb(mod.conv_1x1_exp, _k(key, "conv_1x1_exp"),
+                   path + ("conv_1x1_exp",))
     if not mod.avg:
-        _prelu(mod.module_act, p["module_act"], what + ".module_act")
+        yield from _prelu(_k(key, "module_act"), path + ("module_act",))
 
 
-def _down(mod: DownSampler, p: Mapping, s: Mapping, what: str) -> None:
-    _eesp(mod.eesp, p["eesp"], s["eesp"], what + ".eesp")
+def _down(mod: DownSampler, key: str, path: Path) -> Iterator[Leaf]:
+    yield from _eesp(mod.eesp, _k(key, "eesp"), path + ("eesp",))
     if mod.reinf:
-        _cbr(mod.inp_reinf_cbr, p["inp_reinf_cbr"], s["inp_reinf_cbr"],
-             what + ".inp_reinf_cbr")
-        _cb(mod.inp_reinf_cb, p["inp_reinf_cb"], s["inp_reinf_cb"],
-            what + ".inp_reinf_cb")
-    _prelu(mod.act, p["act"], what + ".act")
+        yield from _cbr(mod.inp_reinf_cbr, _k(key, "inp_reinf_cbr"),
+                        path + ("inp_reinf_cbr",))
+        yield from _cb(mod.inp_reinf_cb, _k(key, "inp_reinf_cb"),
+                       path + ("inp_reinf_cb",))
+    yield from _prelu(_k(key, "act"), path + ("act",))
 
 
-def _pyrpool(mod: EfficientPyrPool, p: Mapping, s: Mapping, what: str) -> None:
-    _cbr(mod.proj, p["proj"], s["proj"], what + ".proj")
-    dw = np.stack([np.asarray(p[f"dw_s{i}_kernel"])[:, :, 0, :]
-                   for i in range(len(mod.scales))])
-    _copy(mod.dw_weights, dw, what + ".dw_s*")
-    _br(mod.merge_br, p["merge_br"], s["merge_br"], what + ".merge_br")
-    _cbr(mod.merge_cbr, p["merge_cbr"], s["merge_cbr"], what + ".merge_cbr")
-    _c(mod.classify, p["classify"], what + ".classify")
+def _pyrpool(mod: EfficientPyrPool, key: str, path: Path) -> Iterator[Leaf]:
+    yield from _cbr(mod.proj, _k(key, "proj"), path + ("proj",))
+    for i in range(len(mod.scales)):
+        yield Leaf(_k(key, "dw_weights"), i,
+                   ("params",) + path + (f"dw_s{i}_kernel",), STACK)
+    yield from _br(_k(key, "merge_br"), path + ("merge_br",))
+    yield from _cbr(mod.merge_cbr, _k(key, "merge_cbr"),
+                    path + ("merge_cbr",))
+    yield from _c(mod.classify, _k(key, "classify"), path + ("classify",))
     if mod.last_br is not None:
-        _br(mod.last_br, p["last_br"], s["last_br"], what + ".last_br")
+        yield from _br(_k(key, "last_br"), path + ("last_br",))
 
 
-def _pwc(mod: EfficientPWC, p: Mapping, s: Mapping, what: str) -> None:
-    _c(mod.wt_conv, p["wt_conv"], what + ".wt_conv")
-    _cbr(mod.expand, p["expand"], s["expand"], what + ".expand")
+def _pwc(mod: EfficientPWC, key: str, path: Path) -> Iterator[Leaf]:
+    yield from _c(mod.wt_conv, _k(key, "wt_conv"), path + ("wt_conv",))
+    yield from _cbr(mod.expand, _k(key, "expand"), path + ("expand",))
 
 
-def _dl_bn(mod: BatchNorm, p: Mapping, s: Mapping, key: str,
-           what: str) -> None:
-    _bn(mod, p[key]["BatchNorm_0"], s[key]["BatchNorm_0"], what)
+def _espnetv2(model) -> Iterator[Leaf]:
+    enc = model.base_net
+    yield from _cbr(enc.level1, "base_net.level1", ("base_net", "level1"))
+    for name in ("level2_0", "level3_0"):
+        yield from _down(getattr(enc, name), f"base_net.{name}",
+                         ("base_net", name))
+    for i, blk in enumerate(enc.level3_blocks):
+        yield from _eesp(blk, f"base_net.level3_blocks.{i}",
+                         ("base_net", f"level3_blocks_{i}"))
+    yield from _down(enc.level4_0, "base_net.level4_0",
+                     ("base_net", "level4_0"))
+    for i, blk in enumerate(enc.level4_blocks):
+        yield from _eesp(blk, f"base_net.level4_blocks.{i}",
+                         ("base_net", f"level4_blocks_{i}"))
+    for name in ("bu_dec_l1", "merge_l2", "bu_dec_l2", "merge_l3",
+                 "bu_dec_l3", "merge_l4", "bu_dec_l4"):
+        mod = getattr(model, name)
+        walk = _pyrpool if isinstance(mod, EfficientPyrPool) else _pwc
+        yield from walk(mod, name, (name,))
 
 
-def _bottleneck(mod: Bottleneck, p: Mapping, s: Mapping, what: str) -> None:
-    for i, (conv, bn) in enumerate(((mod.conv1, mod.bn1),
-                                    (mod.conv2, mod.bn2),
-                                    (mod.conv3, mod.bn3))):
-        _conv(conv, p[f"_Conv_{i}"]["Conv_0"], f"{what}.conv{i + 1}")
-        _dl_bn(bn, p, s, f"_BN_{i}", f"{what}.bn{i + 1}")
-    if mod.downsample is not None:
-        _conv(mod.downsample[0], p["downsample"]["Conv_0"],
-              what + ".downsample")
-        _dl_bn(mod.downsample[1], p, s, "_BN_3", what + ".downsample_bn")
+def _dl_bn(key: str, path: Path, i: int) -> Iterator[Leaf]:
+    yield from _bn(key, path + (f"_BN_{i}", "BatchNorm_0"))
 
 
-def _aspp(mod: ASPP, p: Mapping, s: Mapping, what: str) -> None:
-    convs = [mod.b0, *mod.bs, mod.gp]
-    bns = [mod.bn0, *mod.bns, mod.gp_bn]
-    for i, (conv, bn) in enumerate(zip(convs, bns)):
-        _conv(conv, p[f"_Conv_{i}"]["Conv_0"], f"{what}._Conv_{i}")
-        _dl_bn(bn, p, s, f"_BN_{i}", f"{what}._BN_{i}")
-    _conv(mod.project, p["project"]["Conv_0"], what + ".project")
-    _dl_bn(mod.project_bn, p, s, f"_BN_{len(bns)}", what + ".project_bn")
-
-
-def _deeplab(model: DeepLabV3, p: Mapping, s: Mapping) -> None:
-    enc, pe, se = model.encoder, p["encoder"], s["encoder"]
-    _conv(enc.stem, pe["stem"]["Conv_0"], "encoder.stem")
-    _dl_bn(enc.stem_bn, pe, se, "_BN_0", "encoder.stem_bn")
-    for si, stage in enumerate(enc.stages):
+def _deeplab(model: DeepLabV3) -> Iterator[Leaf]:
+    yield from _conv("encoder.stem", ("encoder", "stem", "Conv_0"), False)
+    yield from _dl_bn("encoder.stem_bn", ("encoder",), 0)
+    for si, stage in enumerate(model.encoder.stages):
         for bi, blk in enumerate(stage):
-            key = f"stage{si}_{bi}"
-            _bottleneck(blk, pe[key], se[key], f"encoder.{key}")
-    _aspp(model.aspp, p["aspp"], s["aspp"], "aspp")
-    _conv(model.low_proj, p["low_proj"]["Conv_0"], "low_proj")
-    _dl_bn(model.low_bn, p, s, "_BN_0", "low_bn")
-    _conv(model.fuse, p["fuse"]["Conv_0"], "fuse")
-    _dl_bn(model.fuse_bn, p, s, "_BN_1", "fuse_bn")
-    _conv(model.classifier, p["classifier"], "classifier")
+            key, path = f"encoder.stages.{si}.{bi}", ("encoder",
+                                                      f"stage{si}_{bi}")
+            for i in range(3):
+                yield from _conv(f"{key}.conv{i + 1}",
+                                 path + (f"_Conv_{i}", "Conv_0"), False)
+                yield from _dl_bn(f"{key}.bn{i + 1}", path, i)
+            if blk.downsample is not None:
+                yield from _conv(f"{key}.downsample.0",
+                                 path + ("downsample", "Conv_0"), False)
+                yield from _dl_bn(f"{key}.downsample.1", path, 3)
+    aspp = model.aspp
+    convs = ["aspp.b0"] + [f"aspp.bs.{i}" for i in range(len(aspp.bs))] + [
+        "aspp.gp"]
+    bns = ["aspp.bn0"] + [f"aspp.bns.{i}" for i in range(len(aspp.bns))] + [
+        "aspp.gp_bn"]
+    for i, (conv, bn) in enumerate(zip(convs, bns)):
+        yield from _conv(conv, ("aspp", f"_Conv_{i}", "Conv_0"), False)
+        yield from _dl_bn(bn, ("aspp",), i)
+    yield from _conv("aspp.project", ("aspp", "project", "Conv_0"), False)
+    yield from _dl_bn("aspp.project_bn", ("aspp",), len(bns))
+    yield from _conv("low_proj", ("low_proj", "Conv_0"), False)
+    yield from _dl_bn("low_bn", (), 0)
+    yield from _conv("fuse", ("fuse", "Conv_0"), False)
+    yield from _dl_bn("fuse_bn", (), 1)
+    yield from _conv("classifier", ("classifier",), True)
 
 
-def _espnetv2(model: torch.nn.Module, p: Mapping, s: Mapping) -> None:
-    enc, pe, se = model.base_net, p["base_net"], s["base_net"]
-    _cbr(enc.level1, pe["level1"], se["level1"], "level1")
-    for name in ("level2_0", "level3_0", "level4_0"):
-        _down(getattr(enc, name), pe[name], se[name], name)
-    for stage in ("level3_blocks", "level4_blocks"):
-        for i, blk in enumerate(getattr(enc, stage)):
-            key = f"{stage}_{i}"
-            _eesp(blk, pe[key], se[key], key)
-    for name in ("bu_dec_l1", "bu_dec_l2", "bu_dec_l3", "bu_dec_l4"):
-        _pyrpool(getattr(model, name), p[name], s[name], name)
-    for name in ("merge_l2", "merge_l3", "merge_l4"):
-        _pwc(getattr(model, name), p[name], s[name], name)
+def flax_leaves(model: torch.nn.Module) -> Iterator[Leaf]:
+    """Every leaf of the model's flax tree, in the JAX model's call order:
+    an ESPNetv2 or DeepLab model, or one EESP unit (its own tree)."""
+    if isinstance(model, DeepLabV3):
+        return _deeplab(model)
+    if isinstance(model, EESP):
+        return _eesp(model, "", ())
+    return _espnetv2(model)
+
+
+def from_flax(a, layout: str) -> torch.Tensor:
+    """A flax leaf as the port holds it: float32, in a new CPU tensor of
+    its own (never a view of the caller's array, which may be read-only,
+    and which an optimizer buffer would otherwise write through)."""
+    a = np.asarray(a, np.float32)
+    if layout == HWIO:
+        a = np.transpose(a, (3, 2, 0, 1))
+    elif layout == STACK:
+        a = a[:, :, 0, :]
+    return torch.from_numpy(np.array(a, np.float32, order="C"))
+
+
+def as_flax(t: torch.Tensor, layout: str) -> np.ndarray:
+    """A port tensor (or one STACK slice of it) in flax's layout, as a new
+    float32 numpy array."""
+    a = t.detach().to("cpu", torch.float32).numpy()
+    if layout == HWIO:
+        a = np.transpose(a, (2, 3, 1, 0))
+    elif layout == STACK:
+        a = a[:, :, None, :]
+    return np.array(a, np.float32, order="C")
+
+
+def get_path(tree: Mapping, path: Path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def to_port(model: torch.nn.Module, tree: Mapping,
+            collections=("params", "batch_stats")) -> Dict[str, torch.Tensor]:
+    """{state-dict key: float32 CPU tensor} of the leaves of `collections`
+    in `tree`, at the port's shapes; raises on a missing leaf or a shape
+    that differs from the model's."""
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    out: Dict[str, torch.Tensor] = {}
+    for leaf in flax_leaves(model):
+        if leaf.path[0] not in collections:
+            continue
+        try:
+            t = from_flax(get_path(tree, leaf.path), leaf.layout)
+        except KeyError as e:
+            raise KeyError(f"flax tree has no leaf {'/'.join(leaf.path)}"
+                           ) from e
+        want = shapes[leaf.key]
+        if leaf.index is not None:
+            if leaf.key not in out:
+                out[leaf.key] = torch.empty(want)
+            dst, want = out[leaf.key][leaf.index], want[1:]
+        if tuple(t.shape) != want:
+            raise ValueError(f"{'/'.join(leaf.path)}: flax shape "
+                             f"{tuple(t.shape)} != port shape {want} "
+                             f"({leaf.key})")
+        if leaf.index is None:
+            out[leaf.key] = t
+        else:
+            dst.copy_(t)
+    return out
+
+
+def to_flax(model: torch.nn.Module, tensors: Mapping[str, torch.Tensor],
+            collections=("params", "batch_stats")) -> Dict:
+    """The flax tree of `collections` (nested dicts of numpy arrays) from
+    {state-dict key: tensor}; a key absent from `tensors` gives zeros."""
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    tree: Dict = {}
+    for leaf in flax_leaves(model):
+        if leaf.path[0] not in collections:
+            continue
+        t = tensors.get(leaf.key)
+        if t is None:
+            t = torch.zeros(shapes[leaf.key])
+        if leaf.index is not None:
+            t = t[leaf.index]
+        node = tree
+        for k in leaf.path[:-1]:
+            node = node.setdefault(k, {})
+        node[leaf.path[-1]] = as_flax(t, leaf.layout)
+    return tree
 
 
 def load_flax_variables(model: torch.nn.Module, variables: Mapping) -> None:
-    """Fill the port's `ESPNetv2Segmentation` or `DeepLabV3` from a flax
-    variable tree of nested dicts of numpy arrays, in place; raises on any
-    shape mismatch."""
-    load = _deeplab if isinstance(model, DeepLabV3) else _espnetv2
+    """Fill the port's `ESPNetv2Segmentation`, `DeepLabV3` or `EESP` unit
+    from a flax variable tree of nested dicts of numpy arrays, in place;
+    raises on any missing leaf or shape mismatch."""
+    values = to_port(model, variables)
+    sd = model.state_dict()
     with torch.no_grad():
-        load(model, variables["params"], variables["batch_stats"])
+        for k, t in values.items():
+            sd[k].copy_(t)
     model.eval()
+
+
+def flax_variables(model: torch.nn.Module) -> Dict:
+    """The model's `{"params", "batch_stats"}` tree, as flax would hold it
+    (nested dicts of float32 numpy arrays)."""
+    return to_flax(model, model.state_dict())

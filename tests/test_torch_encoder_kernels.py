@@ -31,7 +31,7 @@ from mspl_tpu_torch.ops.eesp_branches import (down_front, eesp_branches,
 from mspl_tpu_torch.ops.eesp_stage import (eesp_block_params,
                                            eesp_stage_fused_eval)
 from mspl_tpu_torch.pseudo.generate import PseudoLabelGenerator, make_source
-from mspl_tpu_torch.utils.flax_bridge import _eesp, load_flax_variables
+from mspl_tpu_torch.utils.flax_bridge import load_flax_variables
 
 from tests.test_torch_model import _plain_dicts, flax_variables
 
@@ -129,8 +129,7 @@ def _chain(c, k, r_lim, hw, seed):
                                                    train=False)), rng)
         y = blk.apply(v, y, train=False)
         unit = EESP(c, c, k=k, r_lim=r_lim).eval()
-        with torch.no_grad():
-            _eesp(unit, v["params"], v["batch_stats"], f"unit{i}")
+        load_flax_variables(unit, v)
         units.append(unit)
         flax_vars.append(v)
     return x, units, flax_vars, np.asarray(y)
@@ -174,8 +173,7 @@ def test_eesp_block_params_follow_weight_swaps():
     first = eesp_block_params(units[0])
     assert eesp_block_params(units[0]) is first
     v = flax_vars[1]
-    with torch.no_grad():
-        _eesp(units[0], v["params"], v["batch_stats"], "unit0")
+    load_flax_variables(units[0], v)
     swapped = eesp_block_params(units[0])
     assert swapped is not first
     want = jax_params(v["params"], v["batch_stats"], k)
