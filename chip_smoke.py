@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's pseudo-label main path on one CUDA card, then
-its train step, its self-training rounds and the DeepLab model.
+its train step, its self-training rounds, the DeepLab model, its command
+line and its encoder pretraining.
 
     python3 chip_smoke.py [--batches N] [--profile DIR]
 
@@ -82,11 +83,29 @@ Phases (each prints a line; any failure raises and exits non-zero):
      against the loaded model in process; one `selftrain` round; and
      `export-torch` then `import-torch` of the trained target and of a
      full-width DeepLabV3, bit-equal (`phase_cli`).
+ 10. pretrain: the ESPNetv2-s2.0 classifier (1000 classes, 224x224,
+     `init_model` weights from a seed, BatchNorm statistics from a train
+     forward on 8 images): its fp32 eval forward on the card
+     against the CPU (batch 8) with bf16 beside it; the `use_pallas` and
+     `fuse_stages` routes at batch 128 against the default route (logit
+     gaps, top-1 agreement, the branch kernel's 13 and the fused stage's
+     10 launches a forward, ms a batch); its cls train step (SGD on the
+     hybrid schedule, fp32) on the card against the CPU at batch 8, then
+     at batch 128 with dropout: 20 steps on one batch (the loss falls), ms
+     a step, img/s, peak memory, and the eval step's counts; phase 6's
+     train step at `bn_groups=4` on the card against the CPU, and refused
+     on a batch of 6; the same step with and without `remat` (the states,
+     both peak memories, the branch kernel's launches); and the CLI's
+     `pretrain` (256 class PNGs, 10 classes, 2 epochs at batch 64) then
+     `train --pretrained-encoder` (the encoder bit-equal to the
+     classifier's), `train --bn-groups 2 --remat` and `train --cm-decoder`
+     (`phase_pretrain`).
 The last line is {"ok": true, "device": {...}}; the line before it names
 the card, and the one before that lists every kernel as JSON (the branch
-kernel's row also carries its train launches, and every row its launches
-in phase 7's two rounds, in phase 8's three and over phase 9's CLI
-commands).
+kernel's row also carries its train launches and its remat step's, the
+EESP kernels' rows their launches in a classifier forward of their route,
+and every row its launches in phase 7's two rounds, in phase 8's three
+and over phase 9's CLI commands).
 """
 
 from __future__ import annotations
@@ -109,9 +128,12 @@ from mspl_tpu_torch.engine.losses import compute_class_weights
 from mspl_tpu_torch.engine.metrics import iou_from_confusion
 from mspl_tpu_torch.engine.schedules import build_schedule
 from mspl_tpu_torch.engine.train import (create_train_state, make_eval_step,
-                                         make_train_step)
+                                         make_train_step, step_generator)
 from mspl_tpu_torch.layers.eesp import EESP, branch_dilations
-from mspl_tpu_torch.models.espnetv2 import ESPNetv2Segmentation, init_random
+from mspl_tpu_torch.engine.train_cls import (make_cls_eval_step,
+                                             make_cls_train_step)
+from mspl_tpu_torch.models.espnetv2 import (EESPNet, ESPNetv2Segmentation,
+                                            init_random)
 from mspl_tpu_torch.models.factory import build_segmentation_model, init_model
 from mspl_tpu_torch.ops import (_cuda, eesp_branches, eesp_stage, pseudo,
                                 pseudo_cm, pyrpool, resize_x2)
@@ -498,7 +520,10 @@ def eesp_calls(b, dtype, gen):
 # words (16-byte loads, shared stores value by value)
 EESP_ODD = (((3, 6, 11, 13), (2, 2)), ((2, 5, 21, 9), (1, 2, 4)),
             ((2, 7, 17, 30), (1, 2, 3, 4)), ((2, 4, 16, 30), (1, 1, 2, 3)),
-            ((1, 2, 150, 260), (1, 2, 3, 4)), ((2, 3, 16, 9), (1, 2, 3, 4)))
+            ((1, 2, 150, 260), (1, 2, 3, 4)), ((2, 3, 16, 9), (1, 2, 3, 4)),
+            # the classifier's level5 units at 224x224 (phase 10): 7x7
+            # planes (49 pixels, off every word) of 256 channels a branch
+            ((8, 256, 7, 7), (1, 1, 1, 2)))
 
 
 def eesp_odd_calls(dtype, gen):
@@ -669,6 +694,18 @@ def stage_calls(b, dtype, gen):
     return calls
 
 
+# the classifier's stride-1 stages at 224x224 (phase 10): level3 at 28x28
+# and level4 at 14x14, with STAGES' channels and units
+CLS_STAGE_HW = ((28, 28), (14, 14))
+
+
+def cls_stage_calls(b, dtype, gen):
+    return [(_rand(gen, (b, c, h, w), 1.0, dtype), blocks,
+             branch_dilations(4, r_lim))
+            for (c, r_lim, _, _, _), blocks, (h, w) in
+            zip(STAGES, stage_units(0), CLS_STAGE_HW)]
+
+
 def check_stage(gen):
     """fp32 within the CPU tests' 5e-4 (rtol, and atol at the output's
     scale: random weights grow the activations through the residual chain,
@@ -679,11 +716,13 @@ def check_stage(gen):
     passes such a difference on through its residual: after U units an
     output may differ by about U ulps.  The check allows (U + 1) ulps of
     |want| plus (U + 1) ulps of the output's rms.  The main path's stages
-    come with a small dense-expand chain.  Returns the largest bf16 error
+    come with the classifier's (`CLS_STAGE_HW`) and a small dense-expand
+    chain.  Returns the largest bf16 error
     and the largest output rms."""
     err16 = top_rms = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for x, blocks, d in (stage_calls(8, dtype, gen)
+                             + cls_stage_calls(8, dtype, gen)
                              + dense_stage_calls(8, dtype, gen)):
             got = eesp_stage.eesp_stage_fused_eval(x, blocks, d)
             want = eesp_stage.eesp_stage_fused_eval_plain(x, blocks, d)
@@ -1087,7 +1126,9 @@ def phase_kernels():
           "train step's planes up to 128x240) and tail (with the train "
           "model's 3-class classifier stage) 1e-4, resize (with its 3-class "
           "logits) 1e-5, EESP branches and DownSampler front 1e-5 + rtol "
-          "1e-5, EESP stage 5e-4 + rtol 5e-4), bf16 within one bf16 "
+          "1e-5, EESP stage 5e-4 + rtol 5e-4; the EESP branches also at "
+          "the classifier's level5 7x7 planes, the EESP stage also at its "
+          "level3 28x28 and level4 14x14), bf16 within one bf16 "
           "rounding (EESP stage: units + 1 roundings of |want| and of the "
           f"rms; its outputs' rms up to {stage_rms:.4g}) | bf16 max |err| "
           + ", ".join(f"{k} {v:.3g}" for k, v in err16.items())
@@ -1628,7 +1669,7 @@ def _step_gaps(sa, sb, model0):
     """The gaps of TRAIN_TOL between two train states after one step from
     `model0`, and the parameter where each gradient gap peaks."""
     pa, pb = (dict(st.model.named_parameters()) for st in (sa, sb))
-    before = {k: v.cuda() for k, v in model0.named_parameters()}
+    before = {k: v.to(pb[k].device) for k, v in model0.named_parameters()}
     grads = {k: (pa[k].grad, pb[k].grad) for k in pb}
     g_floor = FLOOR * max(g.abs().max() for _, g in grads.values())
     g_norm = FLOOR * max(g.norm() for _, g in grads.values())
@@ -2610,10 +2651,11 @@ def deterministic_cudnn():
          torch.backends.cudnn.benchmark) = saved
 
 
-def _write_cli_data(root: str):
+def _write_cli_data(root: str, sets=("target", "labeled")):
     """Greenhouse scenes as PNGs through the port's encoder, with
     reference-format lists: 256 unlabeled target images (`target.txt`) and
-    16 labeled ones (`labeled.txt`).  Returns the uint8 arrays."""
+    16 labeled ones (`labeled.txt`), of `sets`.  Returns the uint8
+    arrays."""
     from mspl_tpu_torch.data import native_io
     from mspl_tpu_torch.data.datasets import SyntheticSegmentation
     from mspl_tpu_torch.data.label_io import save_label_png, write_train_list
@@ -2622,6 +2664,8 @@ def _write_cli_data(root: str):
     out = {}
     for name, n, seed in (("target", CLI_TARGET, SEED + 6),
                           ("labeled", CLI_LABELED, SEED + 7)):
+        if name not in sets:
+            continue
         ds = SyntheticSegmentation(TRAIN_CLASSES, size_wh, n, seed=seed)
         samples = [ds.load(i) for i in range(n)]
         imgs = np.stack([x for x, _ in samples])
@@ -3048,6 +3092,469 @@ def phase_cli(smi: str, sources):
     return tally
 
 
+# ---------------------------------------------------------------------------
+# phase 10: encoder pretraining
+# ---------------------------------------------------------------------------
+
+CLS_CLASSES = 1000             # ImageNet's
+CLS_HW = (224, 224)
+CLS_BATCH = 128
+CLS_CPU_BATCH = 8
+CLS_LR = 0.1                   # ClsTrainConfig's, on the hybrid schedule
+# the classifier's fp32 logits on the card against the CPU's (TF32 off),
+# relative to the largest |logit|, as phase 8's DeepLab forward
+CLS_FWD_RTOL = 1e-4
+# an encoder route's fp32 logits against the default route's, relative to
+# the largest |logit|: the fused stage's products are split-bf16 (5e-4 of
+# its plain version in phase 3), the branch kernel's f32 (1e-5)
+CLS_ROUTE_RTOL = 1e-3
+# each route's flag, its kernel and that kernel's launches a forward: one
+# a stride-1 unit, the 13 of level3 (3), level4 (7) and level5 (3), or
+# the 10 of the two fused stages (level5 stays unit by unit)
+CLS_ROUTES = (("use_pallas", "eesp_branches", 13),
+              ("fuse_stages", "eesp_stage_fused_eval", 10))
+# the CLI's pretrain: class-colored noise PNGs at 224x224, 10 classes, two
+# epochs at batch 64, SGD on the hybrid schedule from lr 0.05 (the
+# command's 0.5 cycles up to 2.5 and diverges on these 8 steps)
+CLI_CLS = dict(images=256, classes=10, batch=64, epochs=2, lr=0.05)
+BN_GROUPS = 4
+# a train step on the card against the same step on the CPU (TRAIN_TOL's
+# gaps): the port's fp32 steps on the CPU lie from the same steps in f64
+# (`python -m tests.torch_rounding_gaps --full`, phase 10's inputs) by up
+# to 6.6e-3 of a tensor's gradient norm, 1.75e-2 of its largest gradient
+# and 1.75e-2 of its largest update (the classifier at batch 8), and
+# 2.16e-2, 2.2e-2 and 1.34e-2 (phase 6's step at bn_groups 4, at
+# level2_0's reinforcement BatchNorm: 3 channels over whole planes); the
+# card and the CPU each round so, so the bounds are twice the sum of the
+# largest, 9e-2; the loss and the statistics keep TRAIN_TOL's (measured
+# 1e-7 and 2e-7)
+CPU_TRAIN_TOL = dict(TRAIN_TOL, grad_norm=9e-2, grad_elem=9e-2, param=9e-2)
+
+
+def cls_model():
+    """The ESPNetv2-s2.0 classifier of 1000 classes at `init_model`'s
+    weights from a seed, on the CPU, its BatchNorm statistics set to a
+    train forward's batch statistics on 8 images from a seed (at the
+    initializer's unit statistics the eval activations grow layer by
+    layer, to logits of ~1e5)."""
+    from mspl_tpu_torch.data.transforms import normalize
+
+    model = init_model(EESPNet(s=2.0, num_classes=CLS_CLASSES),
+                       torch.Generator().manual_seed(SEED + 20))
+    x = normalize(torch.from_numpy(np.random.default_rng(SEED + 24).integers(
+        0, 256, (CLS_CPU_BATCH, *CLS_HW, 3), dtype=np.uint8)))
+    stats = {}
+
+    def keep(mod, inp, _):
+        stats[mod] = torch.var_mean(inp[0], dim=(0, 2, 3), unbiased=False)
+
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    hooks = [m.register_forward_hook(keep) for m in bns]
+    with torch.no_grad():
+        model.train()(x, torch.Generator().manual_seed(SEED + 25))
+        for m in bns:
+            m.running_var.copy_(stats[m][0])
+            m.running_mean.copy_(stats[m][1])
+    for h in hooks:
+        h.remove()
+    return model.eval()
+
+
+def _as(model0, **kw):
+    """A classifier of `kw`'s flags holding `model0`'s weights."""
+    model = EESPNet(s=2.0, num_classes=CLS_CLASSES, **kw)
+    model.load_state_dict(model0.state_dict())
+    return model
+
+
+def cls_forward(smi: str, model0):
+    """(a) fp32 on the card against the CPU (batch 8) and bf16 beside it;
+    the `use_pallas` and `fuse_stages` routes at batch 128 against the
+    default route, each with its kernel's launches over one forward and
+    its ms a batch.  Returns the launches of each route's forward."""
+    from mspl_tpu_torch.data.transforms import normalize
+
+    rng = np.random.default_rng(SEED + 21)
+    x = normalize(torch.from_numpy(rng.integers(
+        0, 256, (CLS_BATCH, *CLS_HW, 3), dtype=np.uint8)))
+    with torch.inference_mode():
+        want = copy.deepcopy(model0).eval()(x[:CLS_CPU_BATCH])
+    card = copy.deepcopy(model0).cuda().eval()
+    bf16 = _as(model0, compute_dtype=torch.bfloat16).cuda().eval()
+    xc = x.cuda()
+    with torch.inference_mode():
+        got = card(xc[:CLS_CPU_BATCH])
+        got_bf = bf16(xc[:CLS_CPU_BATCH])
+    scale = want.abs().max().item()
+    err = (got.cpu() - want).abs().max().item()
+    agree = (got.argmax(1).cpu() == want.argmax(1)).float().mean().item()
+    if got.dtype != torch.float32 or got.shape != (
+            CLS_CPU_BATCH, CLS_CLASSES) or not torch.isfinite(got).all() \
+            or err > CLS_FWD_RTOL * scale:
+        raise AssertionError(f"classifier fp32 on the card against the CPU:"
+                             f" max |err| {err:.3g} at |logits| <= "
+                             f"{scale:.4g} (limit {CLS_FWD_RTOL} of it)")
+    if got_bf.dtype != torch.float32 or not torch.isfinite(got_bf).all():
+        raise AssertionError(f"classifier bf16: logits {got_bf.dtype}")
+    bf_err = (got_bf - got).abs().max().item()
+    bf_agree = (got_bf.argmax(1) == got.argmax(1)).float().mean().item()
+    print(f"phase 10 classifier forward (ESPNetv2-s2.0, {CLS_CLASSES} "
+          f"classes, {CLS_HW[0]}x{CLS_HW[1]}): fp32 on the card (TF32 off) "
+          f"against the CPU, batch {CLS_CPU_BATCH}: max |err| {err:.4g} at "
+          f"|logits| <= {scale:.5g} (limit {CLS_FWD_RTOL} of it), top-1 "
+          f"agreeing {agree:.4f}; bf16 against the card's fp32: max |err| "
+          f"{bf_err:.4g}, top-1 agreeing {bf_agree:.4f}, f32 logits",
+          flush=True)
+
+    with torch.inference_mode():
+        ref = card(xc)
+        ms = {"default": time_ms(lambda: card(xc))}
+        ms_bf = time_ms(lambda: bf16(xc))
+    scale = ref.abs().max().item()
+    out = {}
+    lines = []
+    for flag, kernel, per in CLS_ROUTES:
+        model = _as(model0, **{flag: True}).cuda().eval()
+        with torch.inference_mode():
+            model(xc)  # warm-up: the kernels' plans and packed weights
+            for fn in ALL_COUNTERS.values():
+                fn.launches = 0
+            got = model(xc)
+            torch.cuda.synchronize()
+            launches = _counts()
+            ms[flag] = time_ms(lambda: model(xc))
+        expect = {k: per if k == kernel else 0 for k in ALL_COUNTERS}
+        gap = (got - ref).abs().max().item()
+        same = got.argmax(1) == ref.argmax(1)
+        lines.append(
+            f"{flag}: max |logit gap| {gap:.4g} ({gap / scale:.3g} of the "
+            f"largest, limit {CLS_ROUTE_RTOL}), top-1 agreeing "
+            f"{same.float().mean().item():.4f} ({int((~same).sum())} "
+            f"differ), {kernel} {launches[kernel]} launches a forward")
+        if launches != expect or gap > CLS_ROUTE_RTOL * scale \
+                or not torch.isfinite(got).all():
+            raise AssertionError(f"classifier route {flag}: launches "
+                                 f"{launches} (expected {expect}), logit "
+                                 f"gap {gap:.3g}")
+        out[flag] = launches
+        del model
+    print(f"phase 10 classifier routes at batch {CLS_BATCH} fp32 against "
+          f"the default route: " + "; ".join(lines) + " | ms a batch (CUDA "
+          "events): " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f", default in bf16 {ms_bf:.3f} on {smi}", flush=True)
+    return out
+
+
+def _cls_state(model0, device="cuda"):
+    """SGD (momentum 0.9, weight decay 4e-5) at CLS_LR on the hybrid
+    schedule over TRAIN_STEPS steps, one an "epoch", and the cls step."""
+    model = copy.deepcopy(model0).to(device)
+    sched = build_schedule("hybrid", CLS_LR, TRAIN_STEPS)
+    return (create_train_state(model, "sgd", sched, device=device),
+            make_cls_train_step(model, device=device))
+
+
+def _on_cpu(batch):
+    return {k: v.cpu() for k, v in batch.items()}
+
+
+def _state_gaps(sa, sb, model0, loss_a, loss_b, tol=TRAIN_TOL):
+    """TRAIN_TOL's gaps between the card's train state `sa` and `sb` (on
+    the CPU or the card; it moves to the card) after the same steps from
+    `model0`, where they peak, and the gaps beyond `tol`."""
+    sb.model.cuda()
+    gaps, where = _step_gaps(sa, sb, model0)
+    gaps["loss"] = abs(loss_a - loss_b) / abs(loss_b)
+    faults = [f"{k} {v:.3g} > {tol[k]}" for k, v in gaps.items()
+              if v > tol[k]]
+    return gaps, where, faults
+
+
+def cls_train(smi: str, model0):
+    """(b) One cls step on the card against one on the CPU at batch 8
+    (drop rate 0, so both draw nothing); then at batch 128 with dropout
+    0.2: 20 steps on one fixed batch (the loss falls), ms a step, img/s
+    and peak memory over 10 timed steps (no port kernel launched); the
+    eval step's counts over a batch with 100 valid rows."""
+    from mspl_tpu_torch.data.transforms import normalize
+
+    rng = np.random.default_rng(SEED + 22)
+    batch = {"image": torch.from_numpy(rng.integers(
+        0, 256, (CLS_BATCH, *CLS_HW, 3), dtype=np.uint8)).cuda(),
+        "label": torch.from_numpy(rng.integers(
+            0, CLS_CLASSES, CLS_BATCH)).cuda()}
+    small = {k: v[:CLS_CPU_BATCH] for k, v in batch.items()}
+    nodrop = copy.deepcopy(model0)
+    nodrop.drop_rate = 0.0
+    sa, step_a = _cls_state(nodrop)
+    sa, ma = step_a(sa, small)
+    sb, step_b = _cls_state(nodrop, "cpu")
+    sb, mb = step_b(sb, _on_cpu(small))
+    gaps, where, faults = _state_gaps(sa, sb, nodrop, ma["loss"].item(),
+                                      mb["loss"].item(), CPU_TRAIN_TOL)
+    print(f"phase 10 cls train step: one SGD step on the card against one "
+          f"on the CPU, batch {CLS_CPU_BATCH}, drop rate 0: max gap "
+          + ", ".join(f"{k} {v:.3g} (bound {CPU_TRAIN_TOL[k]})"
+                      for k, v in gaps.items())
+          + f" at {json.dumps(where)}; loss {ma['loss'].item():.6f} (CPU "
+          f"{mb['loss'].item():.6f}), accuracy {ma['acc'].item():.4f}",
+          flush=True)
+    if faults:
+        raise AssertionError("cls train step, card against CPU: "
+                             + "; ".join(faults))
+    del sa, sb
+
+    state, step = _cls_state(model0)
+    losses = []
+    for _ in range(3):
+        state, m = step(state, batch, step_generator(SEED, state.step))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in ALL_COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(10):
+        state, m = step(state, batch, step_generator(SEED, state.step))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if any(launches.values()):
+        raise AssertionError(f"cls train launches {launches}")
+    while len(losses) < TRAIN_STEPS:
+        state, m = step(state, batch, step_generator(SEED, state.step))
+        losses.append(m["loss"])
+    losses = [v.item() for v in losses]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"cls train losses {losses}")
+    print(f"phase 10 cls train: {CLS_BATCH} x {CLS_HW[0]}x{CLS_HW[1]} fp32, "
+          f"{CLS_CLASSES} classes, dropout 0.2: {secs * 100:.2f} ms a step, "
+          f"{10 * CLS_BATCH / secs:.2f} img/s (10 timed steps after 3, host "
+          f"clock to a synchronize), peak memory {peak:.3f} GiB, no port "
+          f"kernel launched | loss over {TRAIN_STEPS} steps on one batch "
+          f"(lr {CLS_LR} hybrid): " + ", ".join(f"{v:.4f}" for v in losses)
+          + f" on {smi}", flush=True)
+
+    valid = torch.arange(CLS_BATCH, device="cuda") < 100
+    correct, n_valid = make_cls_eval_step(state.model)(
+        {**batch, "valid": valid})
+    with torch.inference_mode():
+        pred = state.model.eval()(normalize(batch["image"])).argmax(1)
+    want = int(((pred == batch["label"]) & valid).sum())
+    if (int(correct), int(n_valid)) != (want, 100):
+        raise AssertionError(f"cls eval step counts ({int(correct)}, "
+                             f"{int(n_valid)}), expected ({want}, 100)")
+    print(f"phase 10 cls eval step: {int(correct)} correct of "
+          f"{int(n_valid)} valid rows ({CLS_BATCH - int(n_valid)} padded "
+          f"rows left out), as the in-process forward's argmax", flush=True)
+
+
+def ghost_and_remat(smi: str):
+    """(c) phase 6's train step (3-class ESPNetv2-s2.0, batch 8 at
+    256x480) at `bn_groups=4`, on the card against the CPU, and refused on
+    a batch of 6; (d) the same step with and without `remat` from one
+    state, two steps each under deterministic cuDNN: the states compared,
+    the second step's peak memory and its branch-kernel launches.
+    Returns the remat step's launches of each kernel."""
+    model0, batch, cw = train_case()
+
+    def seg_state(device, **kw):
+        model = copy.deepcopy(model0).to(device)
+        sched = build_schedule("hybrid", 0.009, TRAIN_STEPS)
+        return (create_train_state(model, "sgd", sched, device=device),
+                make_train_step(model, class_weights=cw, augment=False,
+                                device=device, **kw))
+
+    sa, step_a = seg_state("cuda", bn_groups=BN_GROUPS)
+    sa, ma = step_a(sa, batch)
+    sb, step_b = seg_state("cpu", bn_groups=BN_GROUPS)
+    sb, mb = step_b(sb, _on_cpu(batch))
+    gaps, where, faults = _state_gaps(sa, sb, model0, ma["loss"].item(),
+                                      mb["loss"].item(), CPU_TRAIN_TOL)
+    sc, step_c = seg_state("cuda", bn_groups=BN_GROUPS)
+    try:
+        step_c(sc, {k: v[:6] for k, v in batch.items()})
+        refused = "not refused"
+    except ValueError as e:
+        refused = f"refused: {e}"
+    print(f"phase 10 bn_groups {BN_GROUPS}: one train step on the card "
+          f"against one on the CPU ({TRAIN_BATCH} x {HW[0]}x{HW[1]}, "
+          f"groups of {TRAIN_BATCH // BN_GROUPS}): max gap "
+          + ", ".join(f"{k} {v:.3g} (bound {CPU_TRAIN_TOL[k]})"
+                      for k, v in gaps.items())
+          + f" at {json.dumps(where)} | a batch of 6: {refused}", flush=True)
+    if faults or not refused.startswith("refused"):
+        raise AssertionError(f"bn_groups: {faults}, batch of 6 {refused}")
+    del sa, sb, sc
+
+    runs = {}
+    with deterministic_cudnn():
+        for remat in (False, True):
+            st, step = seg_state("cuda", remat=remat)
+            st, _ = step(st, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in ALL_COUNTERS.values():
+                fn.launches = 0
+            st, m = step(st, batch)
+            torch.cuda.synchronize()
+            runs[remat] = (st, m["loss"].item(),
+                           torch.cuda.max_memory_allocated() / 2 ** 30,
+                           _counts())
+    (s0, l0, p0, n0), (s1, l1, p1, n1) = runs[False], runs[True]
+    sd0, sd1 = s0.model.state_dict(), s1.model.state_dict()
+    equal = l0 == l1 and all(torch.equal(sd0[k], sd1[k]) for k in sd0)
+    if equal:
+        kind = "bit-equal (parameters, statistics, num_batches_tracked, loss)"
+    else:
+        g, w, _ = _state_gaps(s1, s0, model0, l1, l0)
+        kind = (f"not bit-equal: " + ", ".join(
+            f"{k} {v:.3g} (bound {TRAIN_TOL[k]})" for k, v in g.items())
+            + f" at {json.dumps(w)}")
+    expect = {k: 0 for k in ALL_COUNTERS}
+    print(f"phase 10 remat: two train steps ({TRAIN_BATCH} x "
+          f"{HW[0]}x{HW[1]} fp32, deterministic cuDNN) with and without "
+          f"remat from one state: {kind} | the second step's peak memory "
+          f"{p0:.3f} GiB without, {p1:.3f} GiB with remat | pyr_branches "
+          f"launches a step {n0['pyr_branches']} without, "
+          f"{n1['pyr_branches']} with (the recompute re-launches) on {smi}",
+          flush=True)
+    if not equal and any(v > TRAIN_TOL[k] for k, v in g.items()):
+        raise AssertionError(f"remat changes the step: {kind}")
+    if n1["pyr_branches"] != 2 * n0["pyr_branches"] or n0 != {
+            **expect, "pyr_branches": 4}:
+        raise AssertionError(f"remat launches {n1}, without {n0}")
+    return n1
+
+
+def _write_cls_data(root: str):
+    """CLI_CLS's class-colored noise images as PNGs through the port's
+    codec, listed as `image_path class_id` in `cls.txt`."""
+    from mspl_tpu_torch.data import native_io
+
+    rng = np.random.default_rng(SEED + 23)
+    palette = rng.integers(30, 225, (CLI_CLS["classes"], 3))
+    os.makedirs(os.path.join(root, "cls"), exist_ok=True)
+    lines = []
+    for i in range(CLI_CLS["images"]):
+        c = i % CLI_CLS["classes"]
+        img = palette[c] + rng.normal(0, 12, (*CLS_HW, 3))
+        name = f"cls/img_{i:04d}.png"
+        native_io.encode_png(os.path.join(root, name),
+                             np.clip(img, 0, 255).astype(np.uint8))
+        lines.append(f"{name} {c}\n")
+    with open(os.path.join(root, "cls.txt"), "w") as f:
+        f.writelines(lines)
+
+
+def cli_pretrain(smi: str):
+    """(e) The CLI in a temporary directory: `pretrain` (CLI_CLS), then
+    `train --pretrained-encoder` from its checkpoint on phase 9's labeled
+    greenhouse images (the model's `base_net` at the start of training
+    bit-equal to the classifier's encoder), `train --bn-groups 2 --remat`
+    and `train --cm-decoder`, one epoch each.  Returns the launches over
+    the commands."""
+    import tempfile
+
+    import mspl_tpu_torch.engine.train as et
+    from mspl_tpu_torch.engine.train_cls import \
+        encoder_variables_from_classifier
+    from mspl_tpu_torch.utils.checkpoint import load_checkpoint
+    from mspl_tpu_torch.utils.flax_bridge import flax_variables
+
+    tally = {k: 0 for k in ALL_COUNTERS}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        _write_cls_data(root)
+        _write_cli_data(root, sets=("labeled",))
+        data_s = time.perf_counter() - t0
+        pre = os.path.join(root, "ck_pretrain")
+        res, secs, launches = _cli(
+            ["pretrain", "--data-root", root, "--train-list", "cls.txt",
+             "--val-list", "cls.txt", "--epochs", str(CLI_CLS["epochs"]),
+             "--batch-size", str(CLI_CLS["batch"]), "--lr",
+             str(CLI_CLS["lr"]), "--ckpt-dir", pre],
+            tally)
+        tree, meta = load_checkpoint(os.path.join(pre, "model_best.msgpack"))
+        want_meta = {"dataset": "classification", "model": "eespnet_cls",
+                     "s": 2.0, "num_classes": CLI_CLS["classes"],
+                     "bf16": False, "input_hw": list(CLS_HW),
+                     "best_acc": res["best_acc"]}
+        hist = [(round(h["loss"], 4), round(h["acc"], 4))
+                for h in res["history"]]
+        print(f"phase 10 CLI pretrain: {CLI_CLS['images']} class PNGs at "
+              f"{CLS_HW[0]}x{CLS_HW[1]} ({CLI_CLS['classes']} classes, "
+              f"written in {data_s:.2f} s), {CLI_CLS['epochs']} epochs at "
+              f"batch {CLI_CLS['batch']}, lr {CLI_CLS['lr']} hybrid: "
+              f"{secs:.3f} s, (loss, val acc) by epoch {hist}, meta "
+              f"{json.dumps(meta)} | launches {json.dumps(launches)}",
+              flush=True)
+        if meta != want_meta or not all(np.isfinite(h[0]) for h in hist):
+            raise AssertionError(f"pretrain meta {meta}, expected "
+                                 f"{want_meta}; history {hist}")
+
+        lst = os.path.join(root, "labeled.txt")
+        seg = ["train", "--dataset", "greenhouse", "--data-root", root,
+               "--train-list", lst, "--val-list", lst, "--epochs", "1",
+               "--batch-size", str(CLI_TRAIN["batch"])] + CLI_SIZE
+        start = {}
+        real = et.train_segmentation
+
+        def recording(model, *a, **k):
+            start["tree"] = flax_variables(model)
+            return real(model, *a, **k)
+
+        lines = []
+        for name, extra in (
+                ("--pretrained-encoder", ["--pretrained-encoder", pre]),
+                ("--bn-groups 2 --remat", ["--bn-groups", "2", "--remat"]),
+                ("--cm-decoder", ["--cm-decoder"])):
+            ck = os.path.join(root, "ck_" + name.split()[0].strip("-"))
+            with swapped([(et, "train_segmentation", recording)]):
+                r, secs, launches = _cli(seg + ["--ckpt-dir", ck] + extra,
+                                         tally)
+            loss = r["history"][0]["loss"]
+            if not np.isfinite(loss) or not os.path.exists(
+                    os.path.join(ck, "model_best.msgpack")):
+                raise AssertionError(f"train {name}: loss {loss}")
+            lines.append(f"{name} {secs:.3f} s, loss {loss:.4f}, val mIoU "
+                         f"{r['history'][0]['miou']:.4f}, pyr_branches "
+                         f"{launches['pyr_branches']} launches")
+            if name == "--pretrained-encoder":
+                enc = encoder_variables_from_classifier(tree)
+                base = {c: start["tree"][c]["base_net"]
+                        for c in ("params", "batch_stats")}
+                if not _same_tree(base, enc):
+                    raise AssertionError("train --pretrained-encoder: the "
+                                         "encoder is not the classifier's")
+                lines[-1] += (", base_net at the start bit-equal to the "
+                              "classifier's encoder")
+    print(f"phase 10 CLI train (greenhouse, {CLI_LABELED} images at "
+          f"{HW[0]}x{HW[1]}, batch {CLI_TRAIN['batch']}, 1 epoch): "
+          + "; ".join(lines) + f" on {smi}", flush=True)
+    return tally
+
+
+def phase_pretrain(smi: str):
+    """Phase 10: encoder pretraining at full width (the ESPNetv2-s2.0
+    classifier, 1000 classes at 224x224, weights from a seed, `cls_model`):
+    its eval
+    forward and encoder routes, its train step, `bn_groups` and `remat`
+    in the segmentation train step, and the CLI's `pretrain` and `train`
+    flags.  Returns the classifier routes' launches and the remat step's."""
+    t_phase = time.perf_counter()
+    model0 = cls_model()
+    routes = cls_forward(smi, model0)
+    cls_train(smi, model0)
+    remat = ghost_and_remat(smi)
+    cli = cli_pretrain(smi)
+    print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s on {smi} | "
+          f"launches over the CLI commands {json.dumps(cli)}", flush=True)
+    return routes, remat
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batches", type=int, default=8,
@@ -3071,13 +3578,19 @@ def main():
     round_launches = phase_round(smi, sources, args.profile)
     deeplab_launches = phase_deeplab(smi, sources, args.profile)
     cli_launches = phase_cli(smi, sources)
+    del sources
+    cls_launches, remat_launches = phase_pretrain(smi)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["round_launches"] = round_launches[r["name"]]
         r["deeplab_round_launches"] = deeplab_launches[r["name"]]
         r["cli_launches"] = cli_launches[r["name"]]
+        for flag, kernel, _ in CLS_ROUTES:
+            if r["name"] == kernel:
+                r[f"classifier_{flag}_launches"] = cls_launches[flag][kernel]
         if r["name"] == "pyr_branches":
             r["train_launches"] = train_launches
+            r["remat_train_launches"] = remat_launches["pyr_branches"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,10 @@ version, which CPU tensors take.
 Entry points run on the card unless the caller passes `device="cpu"`:
 `pseudo.generate.make_source`, `PseudoLabelGenerator`,
 `generate_pseudo_labels`, `engine.train.create_train_state`,
-`make_train_step`, `make_eval_step` and `train_segmentation`, and
-`pseudo.self_training.self_training`, which move the model there; the
+`make_train_step`, `make_eval_step` and `train_segmentation`,
+`engine.train_cls.make_cls_train_step`, `make_cls_eval_step` and
+`train_classification`, and `pseudo.self_training.self_training`, which
+move the model there; the
 command line (`python -m mspl_tpu_torch.cli`) runs on the card and fails
 without one.
 """

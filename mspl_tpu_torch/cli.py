@@ -3,6 +3,7 @@
 their defaults are the JAX CLI's:
 
   train         source/target segmentation training
+  pretrain      classification pretraining of the ESPNetv2 encoder
   eval          inference + per-class IoU table (`--save-viz` PNGs)
   infer         predict-only inference over an image list
   pseudo        single/multi-source pseudo-label generation
@@ -19,10 +20,19 @@ reads what the other writes.
 The command line runs on the CUDA card and fails without one; `main(argv,
 device="cpu")` runs the same commands on the CPU (the tests do).  On the
 card the pseudo-label sources are channel-major, so generation runs the
-fused CUDA pass; on the CPU they are not, as in the JAX CLI.  `pretrain`,
-`--pretrained-encoder`, `--remat`, `--bn-groups` > 1 and `--cm-decoder`
-(ROADMAP A.7), `--model-parallel` > 1 (A.6) and `bench` (A.5's port bench)
-belong to later slices of the port and exit with a message naming them.
+fused CUDA pass; on the CPU they are not, as in the JAX CLI.
+
+`pretrain` writes an `eespnet_cls` checkpoint (meta `dataset:
+classification`, `num_classes`, `input_hw`, `best_acc`) that `train
+--pretrained-encoder` reads: the classifier's levels 1-4 initialize the
+segmentation model's encoder.  `--remat` and `--bn-groups` reach `train`'s
+train step; `selftrain` ignores them, as the JAX CLI's does.
+`--cm-decoder` selects the JAX package's channel-major train decoder,
+which that package holds identical to its NHWC one; the port's decoder is
+channel-major already, so the flag changes nothing here but keeps the
+reference's refusals (espnetv2 only, not with `--bn-groups` > 1).
+`--model-parallel` > 1 (ROADMAP A.6) and `bench` (the port's benchmark,
+the work of a benchmark change) exit with a message naming them.
 """
 
 from __future__ import annotations
@@ -108,14 +118,15 @@ def _print_model_card(model) -> None:
     print_info_message(f"model: {n_params / 1e6:.3f} M params")
 
 
-def _check_later_train_flags(args) -> None:
-    if getattr(args, "remat", False):
-        raise _later("--remat (activation checkpointing)", "A.7")
+def _check_cm_decoder(args) -> None:
+    """--cm-decoder's refusals, as the JAX CLI's `_cm_decoder_kw`: the
+    flag is espnetv2-only and takes no ghost-batch statistics."""
+    if not getattr(args, "cm_decoder", False):
+        return
+    if args.model != "espnetv2":
+        raise SystemExit("--cm-decoder is espnetv2-only")
     if getattr(args, "bn_groups", 1) > 1:
-        raise _later("--bn-groups > 1 (ghost-batch statistics)", "A.7")
-    if getattr(args, "cm_decoder", False):
-        raise _later("--cm-decoder (the JAX package's channel-major train "
-                     "decoder)", "A.7")
+        raise SystemExit("--cm-decoder is incompatible with --bn-groups > 1")
 
 
 def _check_model_parallel(args) -> None:
@@ -141,14 +152,17 @@ def _add_common_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--bf16", action="store_true",
                    help="run the conv stack in bfloat16")
     p.add_argument("--remat", action="store_true",
-                   help="rematerialize activations in the backward "
-                        "(ROADMAP A.7)")
+                   help="recompute the forward's activations in the "
+                        "backward (activation checkpointing) to fit a "
+                        "larger batch x crop in device memory")
     p.add_argument("--cm-decoder", action="store_true",
-                   help="the JAX package's channel-major train decoder "
-                        "(ROADMAP A.7)")
+                   help="the JAX package's channel-major train decoder; "
+                        "the port's decoder is channel-major already "
+                        "(espnetv2 only)")
     p.add_argument("--bn-groups", type=int, default=1,
-                   help="BatchNorm statistics scope: 1 = global batch; "
-                        "N>1 per batch group (ROADMAP A.7)")
+                   help="BatchNorm statistics scope: 1 = global batch "
+                        "(default); N>1 = per contiguous batch group "
+                        "(ghost-batch, per-replica BatchNorm)")
     p.add_argument("--rgbd", action="store_true",
                    help="greenhouse RGB-D: lists are 'rgb depth [label]', "
                         "the model stem takes 4 channels")
@@ -180,9 +194,10 @@ def cmd_train(args) -> Dict:
                                              train_segmentation)
     from mspl_tpu_torch.utils.flax_bridge import flax_variables
 
-    if getattr(args, "pretrained_encoder", None):
-        raise _later("--pretrained-encoder (encoder pretraining)", "A.7")
-    _check_later_train_flags(args)
+    _check_cm_decoder(args)
+    if getattr(args, "pretrained_encoder", None) and args.model != "espnetv2":
+        raise SystemExit("--pretrained-encoder initializes an espnetv2 "
+                         "encoder")
     info = dataset_info(args.dataset)
     size_wh = tuple(args.size) if args.size else None
     use_depth = getattr(args, "rgbd", False)
@@ -200,6 +215,8 @@ def cmd_train(args) -> Dict:
     in_ch = getattr(train_ds, "channels", 3)
     model = _new_model(args, info.num_classes, in_ch)
     _print_model_card(model)
+    if getattr(args, "pretrained_encoder", None):
+        _load_pretrained_encoder(model, args.pretrained_encoder)
 
     class_weights = None
     if args.class_weighting:
@@ -216,7 +233,9 @@ def cmd_train(args) -> Dict:
         scheduler=args.scheduler, optimizer=args.optimizer,
         weight_decay=args.weight_decay, seed=args.seed,
         ckpt_dir=args.ckpt_dir, log_dir=args.log_dir, resume=args.resume,
+        remat=getattr(args, "remat", False),
         ckpt_every_steps=getattr(args, "ckpt_every_steps", 0),
+        bn_groups=getattr(args, "bn_groups", 1),
     )
     res = train_segmentation(model, None, train_loader, val_loader,
                              info.num_classes, cfg,
@@ -232,9 +251,64 @@ def cmd_train(args) -> Dict:
     return res
 
 
+def _load_pretrained_encoder(model, pretrained: str) -> None:
+    """Copy the encoder of the `pretrain` checkpoint `pretrained` (a dir or
+    a .msgpack file, its meta beside it) into `model`'s `base_net`."""
+    from mspl_tpu_torch.models import EESPNet
+    from mspl_tpu_torch.models.espnetv2 import copy_encoder
+    from mspl_tpu_torch.utils.checkpoint import load_checkpoint
+    from mspl_tpu_torch.utils.flax_bridge import load_flax_variables
+
+    path = (os.path.join(pretrained, MODEL_CKPT + ".msgpack")
+            if os.path.isdir(pretrained) else pretrained)
+    variables, pmeta = load_checkpoint(path)
+    cls_model = EESPNet(s=pmeta.get("s", 2.0),
+                        num_classes=pmeta["num_classes"])
+    load_flax_variables(cls_model, variables)
+    copy_encoder(model, cls_model)
+    print_info_message(f"initialized encoder from {pretrained}")
+
+
 def cmd_pretrain(args) -> Dict:
-    raise _later("pretrain (classification pretraining of the encoder)",
-                 "A.7")
+    """Classification pretraining of the ESPNetv2 encoder; the checkpoint
+    feeds `train --pretrained-encoder`."""
+    from mspl_tpu_torch.data.datasets import ClassificationListDataset
+    from mspl_tpu_torch.data.loader import DataLoader
+    from mspl_tpu_torch.engine.train_cls import (ClsTrainConfig,
+                                                 train_classification)
+    from mspl_tpu_torch.models import EESPNet, init_model
+    from mspl_tpu_torch.utils.flax_bridge import flax_variables
+
+    size_wh = tuple(args.size) if args.size else (224, 224)
+    train_ds = ClassificationListDataset(args.data_root, args.train_list,
+                                         size_wh=size_wh)
+    val_ds = (ClassificationListDataset(args.data_root, args.val_list,
+                                        size_wh=size_wh)
+              if args.val_list else None)
+    num_classes = max(train_ds.num_classes,
+                      val_ds.num_classes if val_ds else 0)
+    model = init_model(EESPNet(
+        s=args.s, num_classes=num_classes,
+        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32),
+        torch.Generator().manual_seed(0))
+    _print_model_card(model)
+    cfg = ClsTrainConfig(epochs=args.epochs, lr=args.lr,
+                         optimizer=args.optimizer, scheduler=args.scheduler,
+                         weight_decay=args.weight_decay, seed=args.seed)
+    res = train_classification(
+        model, None,
+        DataLoader(train_ds, args.batch_size, shuffle=True, seed=args.seed),
+        DataLoader(val_ds, args.batch_size) if val_ds else None, cfg,
+        device=args.device)
+    _save_model(
+        args.ckpt_dir, flax_variables(model),
+        {"dataset": "classification", "model": "eespnet_cls", "s": args.s,
+         "num_classes": num_classes, "bf16": args.bf16,
+         "input_hw": list(train_ds.shape_hw),
+         "best_acc": res["best_acc"]},
+    )
+    print_info_message(f"pretrain done; best val acc {res['best_acc']:.4f}")
+    return res
 
 
 def _predict(model, imgs_u8, device, with_conf: bool = False):
@@ -475,8 +549,9 @@ def cmd_selftrain(args) -> Dict:
                                                      self_training)
     from mspl_tpu_torch.utils.flax_bridge import flax_variables
 
-    _check_later_train_flags(args)
     _check_model_parallel(args)
+    if not args.init_checkpoint:
+        _check_cm_decoder(args)
     info = dataset_info("greenhouse")
     t = info.num_classes
     sources = _load_sources(args.checkpoints, t, args.device)
@@ -566,7 +641,9 @@ def cmd_export_torch(args) -> Dict:
 
 
 def cmd_bench(args) -> Dict:
-    raise _later("bench (the port's benchmark)", "A.5, slice 9")
+    raise SystemExit("bench: the port has no benchmark yet; defining what "
+                     "it measures is the work of a benchmark change "
+                     "(ROADMAP A.5)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -582,13 +659,12 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--val-list", default=None)
     t.add_argument("--class-weighting", action="store_true")
     t.add_argument("--pretrained-encoder", default=None,
-                   help="classification checkpoint whose encoder "
-                        "initializes the backbone (ROADMAP A.7)")
+                   help="classification checkpoint (from `pretrain`) whose "
+                        "encoder initializes the segmentation backbone")
     _add_common_train_flags(t)
 
     pt = sub.add_parser(
-        "pretrain", help="classification-pretrain the ESPNetv2 encoder "
-                         "(ROADMAP A.7)")
+        "pretrain", help="classification-pretrain the ESPNetv2 encoder")
     pt.add_argument("--data-root", required=True)
     pt.add_argument("--train-list", required=True,
                     help='list file: "image_path class_id" per line')

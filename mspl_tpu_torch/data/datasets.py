@@ -17,8 +17,8 @@ decoded samples serves a self-training round's repeated sweeps.
 ignore), pseudo-label lists, and with `use_depth=True` the RGB-D form
 (`rgb depth [label]` lines, a 4-channel image).  `SyntheticSegmentation`
 makes deterministic procedural scenes, so every stage runs with no data set
-on disk.  The classification list data set of encoder pretraining belongs
-to a later slice (ROADMAP A.7).
+on disk.  `ClassificationListDataset` reads the `image_path class_id` lists
+of encoder pretraining.
 """
 
 from __future__ import annotations
@@ -301,6 +301,43 @@ class GreenhouseRGBD(SegmentationDataset):
         else:
             depth = np.stack([_load_label(p, self.size_wh) for p in dpaths])
         return np.concatenate([imgs, depth[..., None]], axis=-1), labs
+
+
+class ClassificationListDataset:
+    """Image-classification data set from a list file of `image_path
+    class_id` lines (paths relative to `root` unless absolute; the list
+    itself too), the input of encoder pretraining.  `load(i)` gives the
+    uint8 [H, W, 3] image at `size_wh` and its int32 class;
+    `num_classes` is 1 + the largest class in the list."""
+
+    def __init__(self, root: str, list_file: str,
+                 size_wh: Tuple[int, int] = (224, 224)):
+        self.root = root
+        self.size_wh = size_wh
+        self.pairs: List[Tuple[str, int]] = []
+        path = list_file if os.path.isabs(list_file) else os.path.join(
+            root, list_file)
+        with open(path) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                img = parts[0]
+                if not os.path.isabs(img):
+                    img = os.path.join(root, img)
+                self.pairs.append((img, int(parts[1])))
+        self.num_classes = 1 + max(c for _, c in self.pairs)
+
+    def __len__(self) -> int:
+        return len(self.pairs)
+
+    @property
+    def shape_hw(self) -> Tuple[int, int]:
+        return (self.size_wh[1], self.size_wh[0])
+
+    def load(self, i: int) -> Tuple[np.ndarray, np.int32]:
+        img_path, cls = self.pairs[i]
+        return _load_image(img_path, self.size_wh), np.int32(cls)
 
 
 class SyntheticSegmentation:

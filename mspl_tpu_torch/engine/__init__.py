@@ -1,5 +1,6 @@
 """engine of the PyTorch port (see mspl_tpu_torch/__init__.py): losses,
-metrics, lr schedules, and the train and eval steps."""
+metrics, lr schedules, the train and eval steps (`train.py`) and
+classification pretraining (`train_cls.py`)."""
 
 from mspl_tpu_torch.engine.losses import (compute_class_weights,
                                           segmentation_loss)

@@ -4,7 +4,7 @@ regularizers on pseudo-labelled pixels.
 
 The port's logits are channel-major [B, C, H, W], so the class axis is 1
 (the JAX loss with `channel_axis=1`).  Everything is computed in f32
-whatever the logits' dtype, and masked rather than indexed, so the loss
+whatever the logits' dtype (in f64 for f64 logits), and masked rather than indexed, so the loss
 keeps one shape for every batch.
 """
 
@@ -43,16 +43,17 @@ def segmentation_loss(
 
     logits [B, C, H, W] (any float dtype), labels [B, H, W] integers."""
     c = logits.shape[1]
-    logp = F.log_softmax(logits.to(torch.float32), dim=1)
+    f = torch.promote_types(logits.dtype, torch.float32)
+    logp = F.log_softmax(logits.to(f), dim=1)
     valid = labels != ignore_label
     if batch_mask is not None:
         valid = valid & batch_mask.to(torch.bool)[:, None, None]
     safe = torch.where(valid, labels, 0).to(torch.int64)
     pixel_loss = -logp.gather(1, safe[:, None])[:, 0]
     if class_weights is None:
-        wts = valid.to(torch.float32)
+        wts = valid.to(f)
     else:
-        cw = torch.as_tensor(class_weights, dtype=torch.float32,
+        cw = torch.as_tensor(class_weights, dtype=f,
                              device=logits.device)
         wts = torch.where(valid, cw[safe], 0.0)
     loss = (pixel_loss * wts).sum() / wts.sum().clamp_min(1e-8)
@@ -65,7 +66,7 @@ def segmentation_loss(
             reg = (logp.exp() * logp).sum(dim=1) / c  # negative entropy
         else:
             raise ValueError(f"unknown reg_mode '{reg_mode}'")
-        mask = valid.to(torch.float32)
+        mask = valid.to(f)
         loss = loss + reg_weight * ((reg * mask).sum()
                                     / mask.sum().clamp_min(1e-8))
     return loss

@@ -36,12 +36,25 @@ JAX package's flax `TrainState` (`train_state_tree`), so either package
 resumes from the other's checkpoint: SGD's momentum buffer is optax's
 `trace` (no buffer yet is a zero trace: both take the same first step),
 AdamW's `exp_avg`/`exp_avg_sq` are `mu`/`nu`, and its step and the
-schedule's are optax's counts.  The device mesh (ROADMAP A.6), `remat` and
-`bn_groups` (A.7) belong to later slices of the port and raise.
+schedule's are optax's counts.  The device mesh (ROADMAP A.6) belongs to a
+later slice of the port and raises.
+
+`bn_groups` > 1 runs the step's forward and backward under
+`bn_stat_groups` (`layers/conv_blocks.py`): every BatchNorm of the model
+takes ghost-batch statistics over B / bn_groups samples.  `remat`
+checkpoints the forward (`torch.utils.checkpoint`, as the reference wraps
+it in `jax.checkpoint`): the backward recomputes the activations from the
+normalized batch instead of holding them.  The recompute runs under
+`frozen_bn_stats`, so the running statistics move once a step, and under
+the step's group count; it draws no random numbers (the segmentation
+forward has no dropout, and the crops are drawn before it), so the
+recomputed activations are the forward's and the step's numbers do not
+change.  Kernel ③ launches again in the recompute.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, Iterable, Optional, Tuple
@@ -49,11 +62,13 @@ from typing import Any, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from mspl_tpu_torch.data.transforms import normalize, train_transform
 from mspl_tpu_torch.engine.losses import segmentation_loss
 from mspl_tpu_torch.engine.metrics import MIOU, confusion_matrix
 from mspl_tpu_torch.engine.schedules import Schedule, build_schedule
+from mspl_tpu_torch.layers.conv_blocks import bn_stat_groups, frozen_bn_stats
 from mspl_tpu_torch.pseudo.generate import load_variables
 from mspl_tpu_torch.utils.checkpoint import (has_checkpoint, load_checkpoint,
                                              save_checkpoint)
@@ -187,27 +202,49 @@ def step_generator(seed: int, step: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed * 2 ** 32 + step)
 
 
+def _remat_context(groups: int):
+    """`torch.utils.checkpoint`'s contexts: none around the forward (the
+    step's own `bn_stat_groups` holds there), the step's group count and
+    frozen running statistics around the recompute, which may run in
+    autograd's device thread."""
+    @contextlib.contextmanager
+    def recompute():
+        with bn_stat_groups(groups), frozen_bn_stats():
+            yield
+    return lambda: (contextlib.nullcontext(), recompute())
+
+
 def make_train_step(model: nn.Module,
                     crop_hw: Optional[Tuple[int, int]] = None,
                     scale_range: Tuple[float, float] = (0.5, 2.0),
                     class_weights=None, reg_mode: str = "none",
                     reg_weight: float = 0.0, augment: bool = True,
-                    mean=None, std=None, *, device="cuda"):
+                    mean=None, std=None, remat: bool = False,
+                    bn_groups: int = 1, *, device="cuda"):
     """Returns `step(state, batch, rng=None) -> (state, {"loss"})` for
     `model`, which moves to `device`.  The parameters, their order and
-    their defaults are the reference's, less its JAX-only `remat`,
-    `bn_groups`, `donate` and `packer`.
+    their defaults are the reference's, less its JAX-only `donate` and
+    `packer`.
 
     `batch`: "image" uint8 [B, H, W, C], "label" [B, H, W] and optionally
     "valid" [B] (rows that count), numpy arrays or tensors on any device.
     With `augment`, the step crops to `crop_hw` at scales in `scale_range`
     with draws from `rng` (a torch.Generator; by default
     `step_generator(0, state.step)`).  `mean`/`std` replace the ImageNet
-    statistics of `normalize` where given.  The loss is the segmentation
-    loss over the model's channel-major logits; the returned loss is a 0-d
-    f32 tensor on `device`."""
+    statistics of `normalize` where given.  `remat` recomputes the
+    forward's activations in the backward; `bn_groups` > 1 takes ghost-
+    batch BatchNorm statistics (module docstring).  The loss is the
+    segmentation loss over the model's channel-major logits; the returned
+    loss is a 0-d f32 tensor on `device`."""
     if augment and crop_hw is None:
         raise ValueError("augment=True needs crop_hw")
+    forward = model
+    if remat:
+        context_fn = _remat_context(bn_groups)
+
+        def forward(x):
+            return checkpoint(model, x, use_reentrant=False,
+                              context_fn=context_fn)
     device = torch.device(device)
     model.to(device)
     cw = (None if class_weights is None else
@@ -229,12 +266,14 @@ def make_train_step(model: nn.Module,
                 scale_range, **norm_kw)
         else:
             imgs = normalize(imgs, **norm_kw)
-        logits = model(imgs)
-        loss = segmentation_loss(
-            logits, labels, class_weights=cw, reg_mode=reg_mode,
-            reg_weight=reg_weight, batch_mask=_on(batch, "valid", device))
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with bn_stat_groups(bn_groups):
+            logits = forward(imgs)
+            loss = segmentation_loss(
+                logits, labels, class_weights=cw, reg_mode=reg_mode,
+                reg_weight=reg_weight,
+                batch_mask=_on(batch, "valid", device))
+            loss.backward()
         lr = state.schedule(state.step)
         for group in state.optimizer.param_groups:
             group["lr"] = lr
@@ -293,14 +332,14 @@ class TrainLoopConfig:
     resume: bool = False
     eval_every: int = 1
     augment: bool = True
-    remat: bool = False               # A.7
+    remat: bool = False
     verbose: bool = True
     # also checkpoint every N optimizer steps within an epoch (0: per epoch
     # only); `resume` re-enters the epoch at the recorded step
     ckpt_every_steps: int = 0
     # hard stop after N optimizer steps
     max_steps: Optional[int] = None
-    bn_groups: int = 1                # A.7
+    bn_groups: int = 1
 
 
 def train_segmentation(
@@ -321,10 +360,6 @@ def train_segmentation(
     'history'}."""
     if mesh is not None:
         raise NotImplementedError(f"a device mesh {_LATER.format('A.6')}")
-    if cfg.remat or cfg.bn_groups != 1:
-        raise NotImplementedError(
-            f"remat (activation checkpointing) and bn_groups (ghost-batch "
-            f"statistics) {_LATER.format('A.7')}")
     if variables is not None:
         load_variables(model, variables)
     steps_per_epoch = max(len(train_loader), 1)
@@ -356,7 +391,8 @@ def train_segmentation(
     train_step = make_train_step(
         model, class_weights=class_weights, reg_mode=cfg.reg_mode,
         reg_weight=cfg.reg_weight, augment=cfg.augment, crop_hw=cfg.crop_hw,
-        scale_range=cfg.scale_range, device=device)
+        scale_range=cfg.scale_range, remat=cfg.remat,
+        bn_groups=cfg.bn_groups, device=device)
     eval_step = make_eval_step(model, num_classes, device=device)
     logger = ScalarLogger(cfg.log_dir)
     history = []

@@ -10,9 +10,22 @@ into the conv before it: on the H100 the conv's bias then runs as a
 separate broadcast add that costs more than the BatchNorm pass
 (chip_smoke.py --profile, PERF.md).  Grouped and depthwise convolutions
 are native `groups=`.
+
+Two context managers steer every train-mode BatchNorm entered under them,
+so the model's modules take no argument for it (the JAX package's
+`bn_stat_groups` is one too, mspl_tpu/layers/bn.py):
+`bn_stat_groups(G)` computes the batch statistics per contiguous group of
+B / G samples (ghost-batch, per-replica BatchNorm), and
+`frozen_bn_stats()` leaves the running statistics as they are, for the
+forward that activation checkpointing recomputes in the backward
+(`engine/train.py`).  Both are context variables, so they hold in the
+thread that enters them.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn as nn
@@ -20,6 +33,32 @@ import torch.nn.functional as F
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax's convention: running = 0.9 * running + 0.1 * batch
+
+_BN_GROUPS = contextvars.ContextVar("mspl_bn_stat_groups", default=1)
+_BN_UPDATE = contextvars.ContextVar("mspl_bn_update_stats", default=True)
+
+
+@contextlib.contextmanager
+def bn_stat_groups(groups: int):
+    """Train-mode BatchNorm entered under this context normalizes each
+    contiguous group of B / `groups` samples with the group's own
+    statistics (`groups` <= 1: the whole batch, the default)."""
+    token = _BN_GROUPS.set(max(1, int(groups)))
+    try:
+        yield
+    finally:
+        _BN_GROUPS.reset(token)
+
+
+@contextlib.contextmanager
+def frozen_bn_stats():
+    """Train-mode BatchNorm entered under this context normalizes with the
+    batch statistics as always but leaves the running ones untouched."""
+    token = _BN_UPDATE.set(False)
+    try:
+        yield
+    finally:
+        _BN_UPDATE.reset(token)
 
 
 class PReLU(nn.Module):
@@ -36,7 +75,7 @@ class PReLU(nn.Module):
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d (eps 1e-5): (x - mean) * scale / sqrt(var + eps) + bias,
     computed in f32 and rounded once to x's dtype (a bf16 activation keeps
-    f32 statistics, as flax's BatchNorm does).
+    f32 statistics, as flax's BatchNorm does; an f64 one computes in f64).
 
     Eval takes the running statistics.  Train takes the batch's mean and
     biased variance over (B, H, W) and updates the running statistics as
@@ -49,7 +88,13 @@ class BatchNorm(nn.BatchNorm2d):
     at batch 1) torch's batch norm raises; flax normalizes all the same:
     x - mean is 0, so the output is the bias, the running mean takes the
     value and the running variance 0.  That case is normalized here by
-    hand, with the gradients flax's gives (0 to x and the scale)."""
+    hand, with the gradients flax's gives (0 to x and the scale).
+
+    Under `bn_stat_groups(G)`, G > 1, train splits the batch into G
+    contiguous groups, normalizes each with its own f32 mean and biased
+    variance, and moves the running statistics toward the mean over the
+    groups of the group statistics, as the JAX package's ghost-batch
+    BatchNorm does; a batch that G does not divide raises ValueError."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=BN_EPS)
@@ -64,13 +109,13 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        xf = x.to(torch.float32)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        groups = _BN_GROUPS.get()
+        if groups > 1:
+            return self._ghost(xf, groups).to(x.dtype)
         with torch.no_grad():
             var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
-            self.running_mean.mul_(BN_MOMENTUM).add_(mean,
-                                                     alpha=1 - BN_MOMENTUM)
-            self.running_var.mul_(BN_MOMENTUM).add_(var,
-                                                    alpha=1 - BN_MOMENTUM)
+            self._update(mean, var)
         if xf.numel() == xf.shape[1]:
             shape = (1, -1, 1, 1)
             a = (self.weight * torch.rsqrt(var + self.eps)).view(shape)
@@ -78,6 +123,27 @@ class BatchNorm(nn.BatchNorm2d):
                     + self.bias.view(shape)).to(x.dtype)
         return F.batch_norm(xf, None, None, self.weight, self.bias, True,
                             0.0, self.eps).to(x.dtype)
+
+    def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        if _BN_UPDATE.get():
+            with torch.no_grad():
+                self.running_mean.mul_(BN_MOMENTUM).add_(
+                    mean, alpha=1 - BN_MOMENTUM)
+                self.running_var.mul_(BN_MOMENTUM).add_(
+                    var, alpha=1 - BN_MOMENTUM)
+
+    def _ghost(self, xf: torch.Tensor, groups: int) -> torch.Tensor:
+        b, c = xf.shape[:2]
+        if b % groups:
+            raise ValueError(f"bn_stat_groups({groups}) needs a batch "
+                             f"divisible by the group count, got {b}")
+        xg = xf.reshape(groups, b // groups, *xf.shape[1:])
+        var, mean = torch.var_mean(xg, dim=(1, 3, 4), unbiased=False)
+        self._update(mean.detach().mean(0), var.detach().mean(0))
+        shape = (groups, 1, c, 1, 1)
+        a = (self.weight * torch.rsqrt(var + self.eps)).view(shape)
+        y = (xg - mean.view(shape)) * a + self.bias.view(1, 1, c, 1, 1)
+        return y.reshape(xf.shape)
 
 
 class C(nn.Module):

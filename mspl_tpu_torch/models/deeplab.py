@@ -176,6 +176,7 @@ class DeepLabV3(nn.Module):
                             align_corners=True)
         lo = F.relu(self.low_bn(self.low_proj(low)))
         y = F.relu(self.fuse_bn(self.fuse(torch.cat([y, lo], dim=1))))
-        y = self.classifier(y.to(torch.float32))
+        y = self.classifier(y.to(torch.promote_types(y.dtype,
+                                                     torch.float32)))
         return resize_bilinear(y, (x.shape[2], x.shape[3]),
                                align_corners=True)

@@ -1,16 +1,24 @@
-"""ESPNetv2 encoder and segmentation model (port of
-mspl_tpu/models/espnetv2.py), eval mode, NCHW.
+"""ESPNetv2 encoder, classifier and segmentation model (port of
+mspl_tpu/models/espnetv2.py), NCHW.
 
 `EESPNet.encode` returns the stride-2/4/8/16 taps (stage plan 0/3/7/3, RGB
-reinforcement from a shared input pyramid).  `ESPNetv2Segmentation` runs the
+reinforcement from a shared input pyramid).  `EESPNet(num_classes=N)` is
+also the classifier of encoder pretraining, `forward(x, rng)`: level5 (a
+DownSampler without reinforcement, 3 EESP units at r_lim 5, a depthwise
+3x3 CBR and a grouped 1x1 CBR expansion), a global mean, dropout at
+`drop_rate` with its mask drawn from the generator `rng` in train, and a
+linear classifier, f32 logits [B, N].  The head is built only when
+`num_classes` is given (flax's uncalled head allocates nothing; a torch
+module allocates in its constructor), so a segmentation model's
+`base_net` holds the encoder alone.  `copy_encoder` copies a classifier's
+encoder into a segmentation model.  `ESPNetv2Segmentation` runs the
 bottom-up decoder and emits channel-major [B, C, H, W] logits: the
 classifier stage is the fused pyramid-pool kernel and the final x2 upsample
 the resize kernel, as the JAX model with `channel_major_logits=True`.
 `compute_dtype=torch.bfloat16` keeps the parameters in f32 and runs the
-activations in bf16; the logits come out in bf16.  `in_channels` is the
-image's channel count (4 for RGB-D), as the JAX model reads it from its
-input.  The classification head (ImageNet pretraining) belongs to a later
-slice.
+activations in bf16; the segmentation logits come out in bf16.
+`in_channels` is the image's channel count (4 for RGB-D), as the JAX model
+reads it from its input.
 
 Train mode (`model.train()`) runs BatchNorm on batch statistics, the
 decoder in the reference's train order (`layers/pyramid_pool.py`), the
@@ -23,8 +31,9 @@ stride-1 EESP unit's branch stack to the kernel of `ops/eesp_branches.py`;
 `fuse_stages=True` runs each stride-1 stage (level3, level4) through the
 fused-stage kernel of `ops/eesp_stage.py` and takes precedence over
 `use_pallas` there; in train the stages run unit by unit, as the
-reference's do (`fuse and not train`).  The parameter tree is the same
-for every flag.
+reference's do (`fuse and not train`).  The classifier's level5 units
+honour `use_pallas`; `fuse_stages` leaves them unit by unit, as the
+reference does.  The parameter tree is the same for every flag.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from mspl_tpu_torch.layers.conv_blocks import CBR
 from mspl_tpu_torch.layers.eesp import (EESP, DownSampler, _avg_pool_3x3_s2,
@@ -62,15 +72,23 @@ _STAGE_RLIM = (13, 11, 9, 7, 5)
 _STAGE_REPS = (0, 3, 7, 3)
 
 
+_ENCODER = ("level1", "level2_0", "level3_0", "level3_blocks", "level4_0",
+            "level4_blocks")
+
+
 class EESPNet(nn.Module):
-    """ESPNetv2 backbone as a segmentation encoder (`encode`)."""
+    """ESPNetv2 backbone: a segmentation encoder (`encode`) and, with
+    `num_classes`, the classifier of encoder pretraining (`forward`)."""
 
     def __init__(self, s: float = 2.0, reinf: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
                  use_pallas: bool = False, fuse_stages: bool = False,
-                 in_channels: int = 3):
+                 in_channels: int = 3, num_classes: Optional[int] = None,
+                 drop_rate: float = 0.2):
         super().__init__()
         cfg = eespnet_channel_plan(s)
+        self.num_classes = num_classes
+        self.drop_rate = drop_rate
         self.reinf = reinf
         self.compute_dtype = compute_dtype
         self.fuse_stages = fuse_stages
@@ -92,6 +110,17 @@ class EESPNet(nn.Module):
             [EESP(cfg[3], cfg[3], k=_STAGE_K[3], r_lim=_STAGE_RLIM[3],
                   use_pallas=use_pallas)
              for _ in range(_STAGE_REPS[2])])
+        if num_classes is None:
+            return
+        self.level5_0 = DownSampler(cfg[3], cfg[4], k=_STAGE_K[3],
+                                    r_lim=_STAGE_RLIM[3], reinf=False)
+        self.level5_blocks = nn.ModuleList(
+            [EESP(cfg[4], cfg[4], k=_STAGE_K[4], r_lim=_STAGE_RLIM[4],
+                  use_pallas=use_pallas)
+             for _ in range(_STAGE_REPS[3])])
+        self.level5_dw = CBR(cfg[4], cfg[4], 3, groups=cfg[4])
+        self.level5_exp = CBR(cfg[4], cfg[5], 1, groups=_STAGE_K[4])
+        self.classifier = nn.Linear(cfg[5], num_classes)
 
     def _run_stage(self, x: torch.Tensor, blocks: nn.ModuleList, k: int,
                    r_lim: int) -> torch.Tensor:
@@ -122,6 +151,51 @@ class EESPNet(nn.Module):
         l4 = self._run_stage(l4, self.level4_blocks, _STAGE_K[3],
                              _STAGE_RLIM[3])
         return l1, l2, l3, l4
+
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Class logits, f32 [B, num_classes], of NCHW `x`.  In train with
+        `drop_rate` > 0, dropout keeps each pooled feature with probability
+        1 - drop_rate and scales the kept ones by 1 / (1 - drop_rate); its
+        mask is drawn from `rng` (a generator on any device: a CPU one
+        seeds a generator on x's device)."""
+        if self.num_classes is None:
+            raise ValueError("this EESPNet is an encoder (`encode`); build "
+                             "it with num_classes for the classifier")
+        l5 = self.level5_0(self.encode(x)[3])
+        for blk in self.level5_blocks:
+            l5 = blk(l5)
+        l5 = self.level5_exp(self.level5_dw(l5))
+        pooled = l5.mean(dim=(2, 3))
+        if self.training and self.drop_rate > 0.0:
+            pooled = dropout(pooled, self.drop_rate, rng)
+        # flax's Dense promotes a bf16 input against its f32 parameters
+        p = pooled.to(torch.promote_types(pooled.dtype, torch.float32))
+        fc = self.classifier
+        return F.linear(p, fc.weight.to(p.dtype), fc.bias.to(p.dtype))
+
+
+def dropout(x: torch.Tensor, rate: float,
+            rng: Optional[torch.Generator]) -> torch.Tensor:
+    """`x` with each element kept with probability 1 - `rate` and scaled by
+    1 / (1 - rate), the mask drawn from `rng` on x's device (a generator
+    on another device seeds one there from a draw of its own)."""
+    if rng is None:
+        raise ValueError("dropout in train needs a generator")
+    if rng.device != x.device:
+        seed = int(torch.randint(2 ** 62, (1,), generator=rng))
+        rng = torch.Generator(x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=rng, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def copy_encoder(seg: nn.Module, cls: EESPNet) -> None:
+    """Copy the classifier `cls`'s encoder (levels 1-4: parameters and
+    BatchNorm statistics) into the segmentation model `seg`'s `base_net`,
+    in place; raises on a missing key or a shape that differs."""
+    src = {k: v for k, v in cls.state_dict().items()
+           if k.split(".", 1)[0] in _ENCODER}
+    seg.base_net.load_state_dict(src, strict=True)
 
 
 class ESPNetv2Segmentation(nn.Module):

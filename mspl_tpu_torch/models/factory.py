@@ -17,7 +17,8 @@ import torch.nn as nn
 
 from mspl_tpu_torch.layers.conv_blocks import BatchNorm
 from mspl_tpu_torch.models.deeplab import DeepLabV3, _Conv
-from mspl_tpu_torch.models.espnetv2 import ESPNetv2Segmentation, init_random
+from mspl_tpu_torch.models.espnetv2 import (EESPNet, ESPNetv2Segmentation,
+                                            init_random)
 from mspl_tpu_torch.utils.registry import MODEL_NAMES
 
 # flax's truncated-normal variance scaling draws from a unit normal cut at
@@ -42,8 +43,8 @@ def build_segmentation_model(name: str, num_classes: int, s: float = 2.0,
 def _variance_scaling(w: torch.Tensor, scale: float,
                       generator: Optional[torch.Generator]) -> None:
     """flax's `variance_scaling(scale, "fan_in", "truncated_normal")` on an
-    OIHW kernel: fan_in = I * H * W."""
-    fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+    OIHW kernel (fan_in = I * H * W) or a Linear weight [out, in]."""
+    fan_in = w[0].numel()
     lo, hi = math.erf(-_TRUNC / math.sqrt(2)), math.erf(_TRUNC / math.sqrt(2))
     u = torch.rand(w.shape, generator=generator) * (hi - lo) + lo
     z = (torch.erfinv(u) * math.sqrt(2)).clamp(-_TRUNC, _TRUNC)
@@ -73,6 +74,11 @@ def init_model(model: nn.Module,
             _init_deeplab(model, generator)
         elif isinstance(model, ESPNetv2Segmentation):
             init_random(model, generator)
+        elif isinstance(model, EESPNet):
+            # the classifier is flax's Dense: lecun-normal, zero bias
+            init_random(model, generator)
+            if model.num_classes is not None:
+                _variance_scaling(model.classifier.weight, 1.0, generator)
         else:
             raise TypeError(f"no initializer for {type(model).__name__}")
     return model

@@ -107,9 +107,9 @@ def _dw3x3(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
 def pyr_branches_plain(x: torch.Tensor, weights: torch.Tensor,
                        scales: Sequence[float]) -> torch.Tensor:
     """Plain version of the branch stack: x [B, P, H, W], weights
-    [S, 3, 3, P] -> [B, S*P, H, W], computed in f32."""
-    xf = x.to(torch.float32)
-    wf = weights.to(torch.float32)
+    [S, 3, 3, P] -> [B, S*P, H, W], computed in f32 (f64 for f64 x)."""
+    f = torch.promote_types(x.dtype, torch.float32)
+    xf, wf = x.to(f), weights.to(f)
     h, w = x.shape[2], x.shape[3]
     branches = []
     for i, (s, hw_s) in enumerate(zip(scales, branch_sizes(h, w, scales))):

@@ -2,8 +2,9 @@
 
 `flax_leaves(model)` is the one walk between the two layouts: for every
 leaf of the flax `{"params", "batch_stats"}` tree of
-`mspl_tpu.models.ESPNetv2Segmentation` or `DeepLabV3` (or of one EESP
-unit, as the kernel tests load units) it yields the port's
+`mspl_tpu.models.ESPNetv2Segmentation`, `DeepLabV3` or the `EESPNet`
+classifier (or of one EESP unit, as the kernel tests load units) it
+yields the port's
 state-dict key that holds it, the index into that tensor's first dimension
 (or None), the flax path and the layout.  Everything else is built on it,
 so loading, export and the optimizer's buffers (`engine/train.py`) cannot
@@ -23,7 +24,14 @@ EESP depthwise kernel `dw_d{i}` is (3, 3, 1, n) against (n, 1, 3, 3) and
 `merge_cbr`'s grouped merge after the channel shuffle (3, 3, S, P) against
 (P, S, 3, 3)); `STACK`, one of the pyramid pool's branch kernels `dw_s{i}`
 (3, 3, 1, P), indexed by the scales in descending order, which the port
-stacks into one [S, 3, 3, P] tensor; `SAME` for everything else.
+stacks into one [S, 3, 3, P] tensor; `DENSE`, the classifier's flax
+`Dense` kernel (in, out) against torch's `Linear` weight (out, in); `SAME`
+for everything else.
+
+The classifier's tree is its encoder's at the top level (`level1` ...
+`level4_blocks_{i}`, as a segmentation model's `base_net` holds them),
+then `level5_0` (a DownSampler without reinforcement), `level5_blocks_{i}`,
+`level5_dw`, `level5_exp` and `classifier`.
 
 A tree of an RGB-D model (a 4-channel stem) loads into a model built with
 `in_channels=4`; a tree and a model of different channel counts raise on
@@ -48,8 +56,9 @@ import torch
 from mspl_tpu_torch.layers.eesp import EESP, DownSampler
 from mspl_tpu_torch.layers.pyramid_pool import EfficientPWC, EfficientPyrPool
 from mspl_tpu_torch.models.deeplab import DeepLabV3
+from mspl_tpu_torch.models.espnetv2 import EESPNet
 
-HWIO, STACK, SAME = "hwio", "stack", "same"
+HWIO, STACK, DENSE, SAME = "hwio", "stack", "dense", "same"
 Path = Tuple[str, ...]
 
 
@@ -145,20 +154,36 @@ def _pwc(mod: EfficientPWC, key: str, path: Path) -> Iterator[Leaf]:
     yield from _cbr(mod.expand, _k(key, "expand"), path + ("expand",))
 
 
-def _espnetv2(model) -> Iterator[Leaf]:
-    enc = model.base_net
-    yield from _cbr(enc.level1, "base_net.level1", ("base_net", "level1"))
+def _encoder(enc: EESPNet, key: str, path: Path) -> Iterator[Leaf]:
+    yield from _cbr(enc.level1, _k(key, "level1"), path + ("level1",))
     for name in ("level2_0", "level3_0"):
-        yield from _down(getattr(enc, name), f"base_net.{name}",
-                         ("base_net", name))
+        yield from _down(getattr(enc, name), _k(key, name), path + (name,))
     for i, blk in enumerate(enc.level3_blocks):
-        yield from _eesp(blk, f"base_net.level3_blocks.{i}",
-                         ("base_net", f"level3_blocks_{i}"))
-    yield from _down(enc.level4_0, "base_net.level4_0",
-                     ("base_net", "level4_0"))
+        yield from _eesp(blk, _k(key, f"level3_blocks.{i}"),
+                         path + (f"level3_blocks_{i}",))
+    yield from _down(enc.level4_0, _k(key, "level4_0"), path + ("level4_0",))
     for i, blk in enumerate(enc.level4_blocks):
-        yield from _eesp(blk, f"base_net.level4_blocks.{i}",
-                         ("base_net", f"level4_blocks_{i}"))
+        yield from _eesp(blk, _k(key, f"level4_blocks.{i}"),
+                         path + (f"level4_blocks_{i}",))
+
+
+def _classifier(model: EESPNet) -> Iterator[Leaf]:
+    yield from _encoder(model, "", ())
+    if model.num_classes is None:
+        return
+    yield from _down(model.level5_0, "level5_0", ("level5_0",))
+    for i, blk in enumerate(model.level5_blocks):
+        yield from _eesp(blk, f"level5_blocks.{i}", (f"level5_blocks_{i}",))
+    for name in ("level5_dw", "level5_exp"):
+        yield from _cbr(getattr(model, name), name, (name,))
+    yield Leaf("classifier.weight", None, ("params", "classifier", "kernel"),
+               DENSE)
+    yield Leaf("classifier.bias", None, ("params", "classifier", "bias"),
+               SAME)
+
+
+def _espnetv2(model) -> Iterator[Leaf]:
+    yield from _encoder(model.base_net, "base_net", ("base_net",))
     for name in ("bu_dec_l1", "merge_l2", "bu_dec_l2", "merge_l3",
                  "bu_dec_l3", "merge_l4", "bu_dec_l4"):
         mod = getattr(model, name)
@@ -204,11 +229,14 @@ def _deeplab(model: DeepLabV3) -> Iterator[Leaf]:
 
 def flax_leaves(model: torch.nn.Module) -> Iterator[Leaf]:
     """Every leaf of the model's flax tree, in the JAX model's call order:
-    an ESPNetv2 or DeepLab model, or one EESP unit (its own tree)."""
+    an ESPNetv2, DeepLab or EESPNet classifier model, or one EESP unit
+    (its own tree)."""
     if isinstance(model, DeepLabV3):
         return _deeplab(model)
     if isinstance(model, EESP):
         return _eesp(model, "", ())
+    if isinstance(model, EESPNet):
+        return _classifier(model)
     return _espnetv2(model)
 
 
@@ -221,6 +249,8 @@ def from_flax(a, layout: str) -> torch.Tensor:
         a = np.transpose(a, (3, 2, 0, 1))
     elif layout == STACK:
         a = a[:, :, 0, :]
+    elif layout == DENSE:
+        a = a.T
     return torch.from_numpy(np.array(a, np.float32, order="C"))
 
 
@@ -232,6 +262,8 @@ def as_flax(t: torch.Tensor, layout: str) -> np.ndarray:
         a = np.transpose(a, (2, 3, 1, 0))
     elif layout == STACK:
         a = a[:, :, None, :]
+    elif layout == DENSE:
+        a = a.T
     return np.array(a, np.float32, order="C")
 
 
@@ -294,8 +326,8 @@ def to_flax(model: torch.nn.Module, tensors: Mapping[str, torch.Tensor],
 
 
 def load_flax_variables(model: torch.nn.Module, variables: Mapping) -> None:
-    """Fill the port's `ESPNetv2Segmentation`, `DeepLabV3` or `EESP` unit
-    from a flax variable tree of nested dicts of numpy arrays, in place;
+    """Fill the port's `ESPNetv2Segmentation`, `DeepLabV3`, `EESPNet` or
+    `EESP` unit from a flax variable tree of nested dicts of numpy arrays, in place;
     raises on any missing leaf or shape mismatch."""
     values = to_port(model, variables)
     sd = model.state_dict()

@@ -3,9 +3,13 @@ miniature workflow of tests/test_cli.py (train two sources, eval with
 `--save-viz`, soft multi-source and thresholded single-source pseudo,
 one self-training round with `--ckpt-dir`, infer, export-torch and
 import-torch), a cross-package case (the JAX CLI trains a source, and the
-port's `pseudo` on that checkpoint agrees with the JAX CLI's `pseudo`), and
+port's `pseudo` on that checkpoint agrees with the JAX CLI's `pseudo`),
+encoder pretraining (`pretrain` in one package, `train
+--pretrained-encoder` in the other, both ways), the train flags
+`--bn-groups`, `--remat` and `--cm-decoder`, the reference's refusals, and
 the subcommands and flags that belong to later slices."""
 
+import json
 import os
 
 import jax
@@ -255,24 +259,144 @@ def test_port_pseudo_on_a_jax_checkpoint_agrees_with_jax(tmp_path,
     assert agree > 0.999
 
 
+def _make_class_list(root, n=8, classes=4, size=32):
+    """`image_path class_id` lines of class-colored noise PNGs (as the JAX
+    package's ColorClassDataset), written through the port's codec."""
+    from tests.test_cls import ColorClassDataset
+
+    os.makedirs(root, exist_ok=True)
+    ds = ColorClassDataset(num_classes=classes, size=size, length=n, seed=3)
+    lines = []
+    for i in range(n):
+        img, cls = ds.load(i)
+        native_io.encode_png(os.path.join(root, f"c_{i}.png"), img)
+        lines.append(f"c_{i}.png {int(cls)}\n")
+    with open(os.path.join(root, "cls.txt"), "w") as f:
+        f.writelines(lines)
+    return root
+
+
+PRETRAIN = ["--size", "32", "32", "--s", "0.5", "--batch-size", "4",
+            "--epochs", "1", "--optimizer", "adam", "--lr", "0.005",
+            "--scheduler", "fixed"]
+# a train of no epoch writes the model as it starts: the pretrained encoder
+NO_EPOCH = ["--s", "0.5", "--epochs", "0", "--scheduler", "fixed"] + SIZE
+
+
+def _base_net(path):
+    from mspl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    tree, _ = load_checkpoint(path)
+    return {c: tree[c]["base_net"] for c in ("params", "batch_stats")}
+
+
+def _encoder(path):
+    from mspl_tpu_torch.engine.train_cls import \
+        encoder_variables_from_classifier
+    from mspl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    tree, _ = load_checkpoint(path)
+    return encoder_variables_from_classifier(tree)
+
+
+def _same_leaves(a, b):
+    la = jax.tree_util.tree_leaves_with_path(a)
+    lb = jax.tree_util.tree_leaves_with_path(b)
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    for (p, x), (_, y) in zip(la, lb):
+        x, y = np.asarray(x), np.asarray(y)
+        assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), p
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_pretrain_checkpoint_crosses_packages(tmp_path, writer):
+    """One package's `pretrain` writes the `eespnet_cls` checkpoint (its
+    meta: dataset classification, num_classes, input_hw, best_acc); the
+    other's `train --pretrained-encoder` starts from it: the segmentation
+    model it writes after no epoch holds the classifier's levels 1-4 under
+    `base_net`, bit for bit."""
+    root = _make_class_list(str(tmp_path / "cls"))
+    seg = _make_png_dataset(str(tmp_path / "camvid"), "camvid", 11, n=4)
+    pre, ck = str(tmp_path / "pre"), str(tmp_path / "seg")
+    pretrain = ["pretrain", "--data-root", root, "--train-list", "cls.txt",
+                "--val-list", "cls.txt", "--ckpt-dir", pre] + PRETRAIN
+    train = ["train", "--dataset", "camvid", "--data-root", seg,
+             "--train-list", os.path.join(seg, "list.txt"),
+             "--ckpt-dir", ck, "--pretrained-encoder", pre] + NO_EPOCH
+    if writer == "jax":
+        res = jax_main(pretrain)
+        main(train, device="cpu")
+    else:
+        res = main(pretrain, device="cpu")
+        jax_main(train)
+    assert [h["epoch"] for h in res["history"]] == [0]
+    with open(os.path.join(pre, "model_best.json")) as f:
+        meta = json.load(f)
+    assert meta == {"dataset": "classification", "model": "eespnet_cls",
+                    "s": 0.5, "num_classes": 4, "bf16": False,
+                    "input_hw": [32, 32], "best_acc": res["best_acc"]}
+    _same_leaves(_base_net(os.path.join(ck, "model_best.msgpack")),
+                 _encoder(os.path.join(pre, "model_best.msgpack")))
+
+
+@pytest.mark.parametrize("flags", [["--bn-groups", "2", "--remat"],
+                                   ["--cm-decoder"]],
+                         ids=["bn-groups-remat", "cm-decoder"])
+def test_train_flags_reach_the_step(tmp_path, flags):
+    """`train --bn-groups 2 --remat` writes the model that `train
+    --bn-groups 2` writes, bit for bit (remat changes no number), and not
+    the plain run's; `train --cm-decoder` writes the plain run's model (the
+    port's decoder is the channel-major one already; the JAX package holds
+    its two decoders identical, tests/test_cm_decoder.py)."""
+    root = _make_png_dataset(str(tmp_path / "camvid"), "camvid", 11, n=4)
+    args = ["train", "--dataset", "camvid", "--data-root", root,
+            "--train-list", os.path.join(root, "list.txt")] + SIZE + SMALL
+
+    def run(name, extra):
+        ck = str(tmp_path / name)
+        main(args + ["--ckpt-dir", ck] + extra, device="cpu")
+        return _base_net(os.path.join(ck, "model_best.msgpack"))
+
+    got = run("flags", flags)
+    plain = run("plain", [])
+    if flags[0] == "--cm-decoder":
+        _same_leaves(got, plain)
+        return
+    _same_leaves(got, run("groups", ["--bn-groups", "2"]))
+    with pytest.raises(AssertionError):
+        _same_leaves(got, plain)
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["pretrain", "--data-root", "r", "--train-list", "l"], "A.7"),
     (["bench"], "A.5"),
-    (["train", "--dataset", "camvid", "--data-root", "r", "--train-list",
-      "l", "--pretrained-encoder", "p"], "A.7"),
-    (["train", "--dataset", "camvid", "--data-root", "r", "--train-list",
-      "l", "--remat"], "A.7"),
-    (["train", "--dataset", "camvid", "--data-root", "r", "--train-list",
-      "l", "--bn-groups", "2"], "A.7"),
-    (["train", "--dataset", "camvid", "--data-root", "r", "--train-list",
-      "l", "--cm-decoder"], "A.7"),
     (["pseudo", "--checkpoints", "c", "--data-root", "r", "--target-list",
       "t", "--out-dir", "o", "--model-parallel", "2"], "A.6"),
     (["selftrain", "--checkpoints", "c", "--data-root", "r",
       "--target-list", "t", "--model-parallel", "2"], "A.6"),
-], ids=["pretrain", "bench", "pretrained-encoder", "remat", "bn-groups",
-        "cm-decoder", "pseudo-model-parallel", "selftrain-model-parallel"])
+], ids=["bench", "pseudo-model-parallel", "selftrain-model-parallel"])
 def test_later_slices_exit_naming_their_roadmap_item(argv, match):
+    with pytest.raises(SystemExit, match=match):
+        main(argv, device="cpu")
+
+
+TRAIN = ["train", "--dataset", "camvid", "--data-root", "r", "--train-list",
+         "l"]
+
+
+@pytest.mark.parametrize("argv,match", [
+    (TRAIN + ["--cm-decoder", "--model", "deeplabv3"], "espnetv2-only"),
+    (TRAIN + ["--cm-decoder", "--bn-groups", "2"], "incompatible"),
+    (["selftrain", "--checkpoints", "c", "--data-root", "r",
+      "--target-list", "t", "--cm-decoder", "--model", "deeplabv3"],
+     "espnetv2-only"),
+    (TRAIN + ["--model", "deeplabv3", "--pretrained-encoder", "p"],
+     "espnetv2"),
+], ids=["cm-decoder-deeplab", "cm-decoder-bn-groups",
+        "selftrain-cm-decoder-deeplab", "pretrained-encoder-deeplab"])
+def test_the_reference_refusals_exit(argv, match):
+    """The JAX CLI's refusals, before any file is read: `--cm-decoder` is
+    espnetv2-only and takes no ghost-batch statistics, and a pretrained
+    encoder initializes an espnetv2 model."""
     with pytest.raises(SystemExit, match=match):
         main(argv, device="cpu")
 

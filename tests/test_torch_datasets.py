@@ -254,3 +254,32 @@ def test_new_resizes_match_jax(align_corners):
             port_resize.resize_nearest(torch.from_numpy(x), size).numpy(),
             np.asarray(jax_resize.resize_nearest(
                 jnp.asarray(nhwc), size)).transpose(0, 3, 1, 2))
+
+
+def test_classification_list_matches_jax(tmp_path):
+    """`image_path class_id` lines (relative and absolute paths, a blank
+    line; the list named relative to the root) read as the JAX package's
+    `ClassificationListDataset`: the pairs, `num_classes` (1 + the largest
+    class), `shape_hw`, and each image resized to 40x30 with its int32
+    class, byte for byte."""
+    rng = np.random.default_rng(5)
+    lines = []
+    for i, cls in enumerate([3, 0, 7, 3]):
+        name = f"c_{i}.png"
+        native_io.encode_png(str(tmp_path / name),
+                             rng.integers(0, 256, (24, 32, 3), np.uint8))
+        lines.append(f"{tmp_path / name if i == 2 else name} {cls}")
+    (tmp_path / "cls.txt").write_text("\n".join(lines[:2] + [""]
+                                                + lines[2:]) + "\n")
+    got = port_ds.ClassificationListDataset(str(tmp_path), "cls.txt",
+                                            size_wh=(40, 30))
+    want = jax_ds.ClassificationListDataset(str(tmp_path), "cls.txt",
+                                            size_wh=(40, 30))
+    assert got.pairs == want.pairs and len(got) == len(want) == 4
+    assert got.num_classes == want.num_classes == 8
+    assert got.shape_hw == want.shape_hw == (30, 40)
+    for i in range(4):
+        (gi, gc), (wi, wc) = got.load(i), want.load(i)
+        assert gi.shape == (30, 40, 3) and gi.dtype == np.uint8
+        assert gi.tobytes() == wi.tobytes()
+        assert gc.dtype == np.int32 and gc == wc

@@ -330,18 +330,17 @@ def test_pyr_branches_function_grads_only_what_is_asked(branch_case,
     np.testing.assert_allclose(xt.grad.numpy(), want_gx, rtol=0, atol=1e-5)
 
 
-# the reference's parameters that only a JAX step has: activation
-# checkpointing and ghost-batch statistics (ROADMAP A.7), buffer donation
-# and the state packer (no counterpart in an eager port)
-JAX_ONLY = {"remat", "bn_groups", "donate", "packer"}
+# the reference's parameters that only a JAX step has: buffer donation and
+# the state packer (no counterpart in an eager port)
+JAX_ONLY = {"donate", "packer"}
 
 
 @pytest.mark.parametrize("name", ["make_train_step", "make_eval_step"])
 def test_step_signatures_match_the_reference(name):
     """The port's train and eval step makers take the reference's
     parameters in the reference's order with its defaults (augment on,
-    crop_hw and scale_range before class_weights, mean/std), less the
-    JAX-only four, and then the port's own keyword-only `device`, which
+    crop_hw and scale_range before class_weights, mean/std, remat and
+    bn_groups), less the JAX-only two, and then the port's own keyword-only `device`, which
     defaults to the card."""
     import inspect
 

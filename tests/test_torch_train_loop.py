@@ -136,11 +136,32 @@ def test_max_steps_stops_the_loop():
     assert res["history"] == [] and res["best_miou"] == -1.0
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(remat=True), "A.7"), (dict(bn_groups=2), "A.7")])
-def test_later_slices_raise(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _port_loop(None, "sgd", **kwargs)
+@pytest.mark.parametrize("kwargs", [dict(remat=True), dict(bn_groups=2)],
+                         ids=["remat", "bn_groups"])
+def test_remat_and_bn_groups_reach_the_step(monkeypatch, kwargs):
+    """`TrainLoopConfig.remat` and `bn_groups` reach `make_train_step`.
+    With `remat` the loop ends bit for bit where it ends without; with
+    `bn_groups=2` (ghost-batch statistics over each sample of the batches
+    of 2) it ends elsewhere."""
+    import mspl_tpu_torch.engine.train as port_train
+
+    seen = []
+
+    def recording(*a, **kw):
+        seen.append({k: kw[k] for k in ("remat", "bn_groups")})
+        return make_train_step(*a, **kw)
+
+    torch.manual_seed(0)
+    start = ESPNetv2Segmentation(CLASSES, **MODEL_KW).state_dict()
+    plain, _ = _port_loop(start, "sgd")
+    monkeypatch.setattr(port_train, "make_train_step", recording)
+    model, res = _port_loop(start, "sgd", **kwargs)
+    assert seen == [{"remat": kwargs.get("remat", False),
+                     "bn_groups": kwargs.get("bn_groups", 1)}]
+    assert res["state"].step == EPOCHS * N_TRAIN // BATCH
+    same = [torch.equal(v, model.state_dict()[k])
+            for k, v in plain.state_dict().items()]
+    assert all(same) if "remat" in kwargs else not all(same)
 
 
 @pytest.mark.parametrize("kwargs", [
