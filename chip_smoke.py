@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's pseudo-label main path on one CUDA card, then
 its train step, its self-training rounds, the DeepLab model, its command
-line and its encoder pretraining.
+line, its encoder pretraining and its mesh.
 
     python3 chip_smoke.py [--batches N] [--profile DIR]
 
@@ -100,12 +100,28 @@ Phases (each prints a line; any failure raises and exits non-zero):
      `train --pretrained-encoder` (the encoder bit-equal to the
      classifier's), `train --bn-groups 2 --remat` and `train --cm-decoder`
      (`phase_pretrain`).
+ 11. mesh (`parallel/mesh.py`; `phase_mesh`), ranks spawned with
+     `torch.multiprocessing` through a file store, every spawn under a
+     deadline: 11a, NCCL at world = the card count: phase 4's sweep (4
+     batches of 128) through `PseudoLabelGenerator(mesh=make_mesh())`,
+     its img/s and each rank's launches, its labels and confidences
+     against phase 4's generator on the same batches (bit-equal at world
+     1); 11b, gloo at world 2 with both ranks on the card: generation at
+     (model 1, data 2) against one process at the rank's batch (bit-equal)
+     and at (model 2, data 1) (labels and confidences decided alike on >=
+     0.9999 of the pixels), soft and hard; 3 augmented `train_segmentation`
+     steps at data 2 (phase 6's model, global batch 8) against one process,
+     held between controls and against the same steps in f64; one
+     self-training round at data 2 gated as phase 7 gates its rounds; and
+     the CLI's `pseudo --model-parallel 2` through `torch.distributed.run`
+     against a single-process `pseudo`.
 The last line is {"ok": true, "device": {...}}; the line before it names
 the card, and the one before that lists every kernel as JSON (the branch
 kernel's row also carries its train launches and its remat step's, the
 EESP kernels' rows their launches in a classifier forward of their route,
-and every row its launches in phase 7's two rounds, in phase 8's three
-and over phase 9's CLI commands).
+and every row its launches in phase 7's two rounds, in phase 8's three,
+over phase 9's CLI commands and, as `mesh_launches`, in each rank of
+phase 11a's sweep ("nccl") and of phase 11b's mesh runs ("gloo")).
 """
 
 from __future__ import annotations
@@ -113,8 +129,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import json
 import os
+import re
 import subprocess
 import time
 
@@ -1408,7 +1426,9 @@ def profile_sweep(sweep, n_images: int, out_dir: str,
         for e in own), flush=True)
 
 
-def phase_main_path(n_batches: int, smi: str, profile_dir=None):
+def main_sources(device="cuda"):
+    """The main path's three ESPNetv2-s2.0 bf16 sources, random weights
+    from the seed, channel-major, on `device`."""
     g = torch.Generator().manual_seed(SEED)
     sources = []
     for name, c in SOURCES:
@@ -1416,12 +1436,22 @@ def phase_main_path(n_batches: int, smi: str, profile_dir=None):
             c, s=2.0, compute_dtype=torch.bfloat16), g)
         sources.append(generate.make_source(name, model, None, name,
                                             channel_major=True,
-                                            device="cuda"))
+                                            device=device))
+    return sources
+
+
+def main_pool() -> np.ndarray:
+    """The main path's 256 distinct uint8 images, from the seed."""
+    return np.random.default_rng(SEED).integers(
+        0, 256, (2 * BATCH, *HW, 3), dtype=np.uint8)
+
+
+def phase_main_path(n_batches: int, smi: str, profile_dir=None):
+    sources = main_sources()
     gen = generate.PseudoLabelGenerator(
         sources, mode="soft", kc=np.full(3, KC, np.float32),
         conf_mode="prob", device="cuda")
-    pool = np.random.default_rng(SEED).integers(
-        0, 256, (2 * BATCH, *HW, 3), dtype=np.uint8)
+    pool = main_pool()
     n_images = BATCH * n_batches
 
     sweep = make_sweep(gen, pool)
@@ -2058,15 +2088,31 @@ def _train_only(fn):
     return lambda *a: fn(*a) if torch.is_grad_enabled() else plain(*a)
 
 
+def round_sets():
+    """Phase 7's target model (f32, 3 classes, weights from a seed on the
+    CPU), its 64 unlabeled target and 16 labeled val images."""
+    from mspl_tpu_torch.data.datasets import SyntheticSegmentation
+
+    target0 = init_random(ESPNetv2Segmentation(TRAIN_CLASSES, s=2.0),
+                          torch.Generator().manual_seed(SEED + 3))
+    size_wh = (HW[1], HW[0])
+    target_set = CachedSet(SyntheticSegmentation(
+        TRAIN_CLASSES, size_wh, ROUND_TARGET, seed=SEED + 4, unlabeled=True))
+    val_set = CachedSet(SyntheticSegmentation(TRAIN_CLASSES, size_wh,
+                                              ROUND_VAL, seed=SEED + 5))
+    return target0, target_set, val_set
+
+
 def run_rounds(sources, target0, target_set, val_set, plain=False,
                branch=None, deterministic=False, rounds=2, paired=False,
-               flip=None):
+               flip=None, mesh=None):
     """`rounds` self-training rounds from `target0`'s weights on the card,
     the launch counts set to 0 just before and read just after; on the plain
     versions with `plain`, with `branch` for the branch stack (inside
-    `plain_kernels()`), with cuDNN's deterministic algorithms where asked;
-    `paired` and `flip` as `round_probes` takes them.  Returns the probes'
-    record with the history, the launches and the seconds."""
+    `plain_kernels()`), with cuDNN's deterministic algorithms where asked,
+    on `mesh` where given; `paired` and `flip` as `round_probes` takes
+    them.  Returns the probes' record with the history, the launches and
+    the seconds."""
     import mspl_tpu_torch.layers.pyramid_pool as pp
     import mspl_tpu_torch.pseudo.self_training as st
 
@@ -2086,7 +2132,7 @@ def run_rounds(sources, target0, target_set, val_set, plain=False,
                 model, None, sources, target_set,
                 DataLoader(val_set, batch_size=ROUND_BATCH), 3,
                 st.SelfTrainConfig(**{**ROUND_CFG, "rounds": rounds}),
-                device="cuda")
+                mesh=mesh, device="cuda")
             torch.cuda.synchronize()
             end = time.perf_counter()
             rec["launches"] = _counts()
@@ -2151,16 +2197,8 @@ def phase_round(smi: str, sources, profile_dir=None):
     """Two full-width self-training rounds (phase 4's sources, an f32
     3-class target model) on the kernels, timed and counted, and their gate
     against the same rounds on the plain versions."""
-    from mspl_tpu_torch.data.datasets import SyntheticSegmentation
-
     t_phase = time.perf_counter()
-    target0 = init_random(ESPNetv2Segmentation(TRAIN_CLASSES, s=2.0),
-                          torch.Generator().manual_seed(SEED + 3))
-    size_wh = (HW[1], HW[0])
-    target_set = CachedSet(SyntheticSegmentation(
-        TRAIN_CLASSES, size_wh, ROUND_TARGET, seed=SEED + 4, unlabeled=True))
-    val_set = CachedSet(SyntheticSegmentation(TRAIN_CLASSES, size_wh,
-                                              ROUND_VAL, seed=SEED + 5))
+    target0, target_set, val_set = round_sets()
     sets = (sources, target0, target_set, val_set)
 
     # the gate first (it also warms the plans and allocator): the rounds on
@@ -3555,6 +3593,523 @@ def phase_pretrain(smi: str):
     return routes, remat
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the mesh
+# ---------------------------------------------------------------------------
+
+MESH_BATCHES = 4             # 11a: batches of BATCH over the NCCL mesh
+GLOO_WORLD = 2               # 11b: gloo ranks on the card(s)
+MESH_GEN_BATCHES, MESH_GEN_BATCH = 2, 64  # 11b's generation checks
+# 11b's generation against one process.  On the data axis a rank's forward
+# takes half a batch, and cuDNN picks its algorithms by shape: a bf16
+# forward of 32 rounds otherwise than one of 64, and the random weights'
+# near-saturated softmaxes turn such roundings into a few flipped
+# one-hots (on an H100 80GB HBM3 at 700 W: 0.99987 of the labels,
+# confidences 1/3 apart where labels agree).  So the data axis is held bit for bit against one
+# process sweeping the same images at the rank's batch (like shapes), and
+# the full batch's agreement is printed.  The model axis runs the full
+# batch's forwards and fuses in f32 plain torch where one process runs
+# kernel ①: at least MESH_AGREE of the pixels must keep their label and
+# their confidence within MESH_CONF_TOL (a near-tied vote that flips moves
+# a hard confidence by 1/3)
+MESH_AGREE = 0.9999
+MESH_CONF_TOL = 1e-5
+MESH_TRAIN_STEPS = 3
+# 11b's train steps at data 2 against the single-process steps on the same
+# global batches (deterministic cuDNN): |a - b| / |b - start| over every
+# parameter (`update_gap`), held between single-process controls beside
+# it: the same steps with cuDNN's default algorithms (printed) and with
+# per-replica BatchNorm statistics, `bn_groups` 2 (the fault a
+# data-parallel step must not have: it must go beyond the limit).  And
+# both fp32 runs against the same steps in f64 (the plain versions, cuDNN
+# in f64): the mesh may lie at most MESH_F64_RATIO times as far from it as
+# the single process does.  On an H100 80GB HBM3 at 700 W: the mesh
+# 0.0116 from the single process, cuDNN's default algorithms 0.00206-
+# 0.00258, per-replica BatchNorm 0.403; from f64 the mesh 0.00726, the
+# single process 0.0107
+MESH_TRAIN_TOL = 3e-2
+MESH_F64_RATIO = 2.0
+MESH_SPAWN_S = 300.0         # a spawn's deadline: a hung collective fails
+
+
+def _mesh_rank(rank: int, world: int, tmp: str, task: str) -> None:
+    """One rank of a phase-11 spawn: join the job through a file store in
+    `tmp` (the backend by `parallel/mesh.py`'s rule), run `task`, pickle
+    what it returns into `tmp`."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from mspl_tpu_torch.parallel.mesh import init_distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    backend = init_distributed(rank, world, f"file://{tmp}/store",
+                               timeout_s=MESH_SPAWN_S)
+    out = globals()[task](rank, world)
+    out["backend"] = backend
+    out["device"] = str(torch.device("cuda", torch.cuda.current_device()))
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def spawn_mesh(task: str, world: int):
+    """`task(rank, world)` in `world` spawned ranks, each with its own
+    CUDA context; raises if a rank fails or the spawn passes
+    MESH_SPAWN_S.  Returns each rank's result."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(_mesh_rank, args=(world, tmp, task),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + MESH_SPAWN_S
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                for p in ctx.processes:
+                    p.join(10)
+                raise AssertionError(f"phase 11 {task}: {world} ranks not "
+                                     f"done in {MESH_SPAWN_S} s")
+        out = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+    return out
+
+
+def _mesh_loader(n: int, batch: int, pool):
+    return DataLoader(SyntheticImages(n, pool), batch_size=batch,
+                      num_workers=2)
+
+
+def mesh_reference(gen, pool):
+    """Phase 4's generator over 11a's batches: (labels, confs) on the
+    host."""
+    lab, conf, _ = gen(_mesh_loader(BATCH * MESH_BATCHES, BATCH, pool),
+                       return_device=True)
+    return lab.cpu().numpy(), conf.cpu().numpy()
+
+
+def _zero_counts():
+    for fn in ALL_COUNTERS.values():
+        fn.launches = 0
+
+
+def mesh_nccl_task(rank: int, world: int):
+    """11a in a rank: phase 4's sweep (sources, kc, batches of 128) over
+    `make_mesh()`, timed and counted after a warm batch."""
+    from mspl_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    gen = generate.PseudoLabelGenerator(
+        main_sources(), mode="soft", kc=np.full(3, KC, np.float32),
+        conf_mode="prob", mesh=mesh, device="cuda")
+    pool = main_pool()
+    gen(_mesh_loader(BATCH, BATCH, pool), return_device=True)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    lab, conf, _ = gen(_mesh_loader(BATCH * MESH_BATCHES, BATCH, pool),
+                       return_device=True)
+    torch.cuda.synchronize()
+    out = dict(secs=time.perf_counter() - t0, launches=_counts(),
+               shape=mesh.shape)
+    if rank == 0:
+        out.update(labels=lab.cpu().numpy(), confs=conf.cpu().numpy())
+    return out
+
+
+def mesh_nccl(smi: str, ref):
+    """11a: NCCL at world = the card count, its labels against phase 4's
+    generator on the same batches."""
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    ranks = spawn_mesh("mesh_nccl_task", world)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    if {r["backend"] for r in ranks} != {"nccl"}:
+        raise AssertionError(f"11a backends {[r['backend'] for r in ranks]}")
+    want = {k: PER_BATCH.get(k, 0) * MESH_BATCHES for k in ALL_COUNTERS}
+    for i, r in enumerate(ranks):
+        if r["launches"] != want:
+            raise AssertionError(f"11a rank {i} launches {r['launches']}, "
+                                 f"expected {want}")
+    lab, conf = r0["labels"], r0["confs"]
+    if lab.shape != ref[0].shape or conf.shape != ref[1].shape:
+        raise AssertionError(f"11a shapes {lab.shape} {conf.shape}")
+    agree = float((lab == ref[0]).mean())
+    same = lab == ref[0]
+    dconf = float(np.abs(conf - ref[1])[same].max())
+    if world == 1:
+        ok = np.array_equal(lab, ref[0]) and np.array_equal(conf, ref[1])
+        gate = "bit-equal"
+    else:
+        ok = agree >= MESH_AGREE and dconf <= MESH_CONF_TOL
+        gate = f"agreement >= {MESH_AGREE}, conf within {MESH_CONF_TOL}"
+    n = BATCH * MESH_BATCHES
+    print(f"phase 11a NCCL mesh {r0['shape']} over {world} rank(s) "
+          f"({[r['device'] for r in ranks]}): {MESH_BATCHES} batches of "
+          f"{BATCH} at {HW[0]}x{HW[1]}, phase 4's sources bf16 -> "
+          f"{n / max(r['secs'] for r in ranks):.2f} img/s (host clock of "
+          f"the slowest rank's sweep, after a warm batch) on {smi} | "
+          f"launches per rank "
+          f"{json.dumps([{k: r['launches'][k] for k in COUNTERS} for r in ranks])}"
+          f" | labels against phase 4's generator: agreement {agree:.7f}, "
+          f"max |conf err| where equal {dconf:.3g} ({gate}: "
+          f"{'pass' if ok else 'FAIL'}) | spawn {wall:.1f} s", flush=True)
+    if not ok:
+        raise AssertionError(f"11a labels against phase 4's: agreement "
+                             f"{agree}, conf {dconf} ({gate})")
+    return [r["launches"] for r in ranks]
+
+
+def _gen_case(rank, mode, m, d, pool, sources):
+    """One mesh sweep of 11b's batches, timed and counted, and on rank 0
+    the single-process sweep beside it."""
+    from mspl_tpu_torch.parallel.mesh import make_mesh
+
+    n = MESH_GEN_BATCHES * MESH_GEN_BATCH
+    kc = np.full(3, KC, np.float32)
+    gen = generate.PseudoLabelGenerator(
+        sources, mode=mode, kc=kc, mesh=make_mesh(data=d, model=m),
+        device="cuda")
+    gen(_mesh_loader(MESH_GEN_BATCH, MESH_GEN_BATCH, pool),
+        return_device=True)  # warm: this shape's cuDNN plans
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    lab, conf, idx = gen(_mesh_loader(n, MESH_GEN_BATCH, pool),
+                         return_device=True)
+    torch.cuda.synchronize()
+    out = dict(secs=time.perf_counter() - t0, launches=_counts())
+    if rank == 0:
+        single = generate.PseudoLabelGenerator(sources, mode=mode, kc=kc,
+                                               device="cuda")
+        like = single(_mesh_loader(n, MESH_GEN_BATCH // d, pool),
+                      return_device=True)
+        full = single(_mesh_loader(n, MESH_GEN_BATCH, pool),
+                      return_device=True)
+        decided = (lab == like[0]) & ((conf - like[1]).abs()
+                                      <= MESH_CONF_TOL)
+        out.update(exact=bool(torch.equal(lab, like[0])
+                              and torch.equal(conf, like[1])),
+                   decided=decided.float().mean().item(),
+                   dconf=(conf - like[1]).abs().max().item(),
+                   full_agree=(lab == full[0]).float().mean().item(),
+                   index_equal=bool(np.array_equal(idx, like[2])),
+                   ignore=(lab == 255).float().mean().item())
+    return out
+
+
+def _mesh_train(rank: int):
+    """MESH_TRAIN_STEPS augmented steps of `train_segmentation` at data 2
+    (phase 6's model, global batch 8 at 256x480 fp32), and on rank 0 the
+    same steps in one process; both with deterministic cuDNN."""
+    from mspl_tpu_torch.data.datasets import SyntheticSegmentation
+    from mspl_tpu_torch.engine.train import (TrainLoopConfig,
+                                             train_segmentation)
+    from mspl_tpu_torch.parallel.mesh import make_mesh
+
+    train_set = CachedSet(SyntheticSegmentation(
+        TRAIN_CLASSES, (HW[1], HW[0]), MESH_TRAIN_STEPS * TRAIN_BATCH,
+        seed=SEED + 8))
+    labels = train_set.labels
+    cw = compute_class_weights(np.bincount(labels[labels != 255],
+                                           minlength=TRAIN_CLASSES))
+    cfg = TrainLoopConfig(epochs=1, crop_hw=HW, seed=SEED, verbose=False,
+                          max_steps=MESH_TRAIN_STEPS)
+    model0 = init_random(ESPNetv2Segmentation(TRAIN_CLASSES, s=2.0),
+                         torch.Generator().manual_seed(SEED))
+    before = {k: v.detach().cuda() for k, v in model0.named_parameters()}
+
+    def run(mesh, deterministic=True, bn_groups=1, f64=False):
+        model = copy.deepcopy(model0)
+        if f64:
+            model.double()
+            for mod in model.modules():
+                if hasattr(mod, "compute_dtype"):
+                    mod.compute_dtype = torch.float64
+        loader = DataLoader(train_set, batch_size=TRAIN_BATCH, shuffle=True,
+                            seed=SEED)
+        with (deterministic_cudnn() if deterministic
+              else contextlib.nullcontext()), \
+                (plain_kernels() if f64 else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = train_segmentation(
+                model, None, loader, None, TRAIN_CLASSES,
+                dataclasses.replace(cfg, bn_groups=bn_groups),
+                class_weights=cw, mesh=mesh, device="cuda")
+            torch.cuda.synchronize()
+        return (res, time.perf_counter() - t0,
+                {k: v.detach().clone() for k, v in model.named_parameters()})
+
+    run(make_mesh(data=GLOO_WORLD))  # warm: plans, allocator
+    _zero_counts()
+    res, secs, params = run(make_mesh(data=GLOO_WORLD))
+    out = dict(secs=secs, launches=_counts(), steps=res["state"].step,
+               digest=[float(p.double().sum()) for p in params.values()])
+    if rank == 0:
+        _, single_secs, want = run(None)
+        ctrl = {"cuDNN's default algorithms": run(None, deterministic=False),
+                f"per-replica BatchNorm (bn_groups {GLOO_WORLD})":
+                    run(None, bn_groups=GLOO_WORLD)}
+        exact = run(None, f64=True)[2]
+        out.update(gap=update_gap(params, want, before),
+                   single_secs=single_secs,
+                   controls={k: update_gap(v[2], want, before)
+                             for k, v in ctrl.items()},
+                   f64={"mesh": update_gap(params, exact, before),
+                        "one process": update_gap(want, exact, before)})
+    return out
+
+
+def _mesh_round(rank: int, sources):
+    """One self-training round at (model 1, data 2), phase 7's setting,
+    and on rank 0 the same round in one process, both with deterministic
+    cuDNN."""
+    from mspl_tpu_torch.parallel.mesh import make_mesh
+
+    target0, target_set, val_set = round_sets()
+    sets = (sources, target0, target_set, val_set)
+    rec = run_rounds(*sets, deterministic=True, rounds=1,
+                     mesh=make_mesh(data=GLOO_WORLD))
+    check_round_run(rec, kernels=True)
+    out = dict(secs=rec["secs"], launches=rec["launches"],
+               kc=rec["history"][0]["kc"])
+    if rank == 0:
+        ref = run_rounds(*sets, deterministic=True, rounds=1)
+        before = {k: v.detach().cuda()
+                  for k, v in target0.named_parameters()}
+        out.update(agree=_agreement(rec, ref, 0), kc_gap=_kc_gap(rec, ref, 0),
+                   gap=update_gap(rec["rounds"][0]["params"],
+                                  ref["rounds"][0]["params"], before),
+                   single_secs=ref["secs"])
+    return out
+
+
+def mesh_gloo_task(rank: int, world: int):
+    """11b in a rank: generation at (1, 2) and (2, 1), soft and hard; the
+    train steps at data 2; a self-training round at data 2."""
+    sources, pool = main_sources(), main_pool()
+    out = {"gen": {}}
+    for mode in ("soft", "hard"):
+        for m, d in ((1, GLOO_WORLD), (GLOO_WORLD, 1)):
+            out["gen"][f"{mode} (model {m}, data {d})"] = _gen_case(
+                rank, mode, m, d, pool, sources)
+    out["train"] = _mesh_train(rank)
+    out["round"] = _mesh_round(rank, sources)
+    total = {k: 0 for k in ALL_COUNTERS}
+    for part in (*out["gen"].values(), out["train"], out["round"]):
+        for k, v in part["launches"].items():
+            total[k] += v
+    out["launches"] = total
+    return out
+
+
+def _gen_expected(m: int, d: int, rank: int):
+    """A rank's launches in 11b's sweep: on the data axis phase 4's per
+    batch (its shard), on the model axis its sources' forwards and no
+    fused pass."""
+    if m == 1:
+        return {k: PER_BATCH.get(k, 0) * MESH_GEN_BATCHES
+                for k in ALL_COUNTERS}
+    mine = len(range(rank % m, len(SOURCES), m))
+    per = {k: n // len(SOURCES) for k, n in PER_BATCH.items()}
+    return {k: 0 for k in ALL_COUNTERS} | {
+        k: per[k] * mine * MESH_GEN_BATCHES
+        for k in ("pyr_branches", "pyr_pool_fused_eval", "resize_x2_cm")}
+
+
+def mesh_gloo(smi: str):
+    """11b: gloo at world 2 with every rank's tensors and kernels on the
+    card(s)."""
+    t0 = time.perf_counter()
+    ranks = spawn_mesh("mesh_gloo_task", GLOO_WORLD)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    faults = []
+    if {r["backend"] for r in ranks} != {"gloo"}:
+        faults.append(f"backends {[r['backend'] for r in ranks]}")
+    n = MESH_GEN_BATCHES * MESH_GEN_BATCH
+    for name, g in r0["gen"].items():
+        m = int(name.split("model ")[1].split(",")[0])
+        d = int(name.split("data ")[1].rstrip(")"))
+        for i, r in enumerate(ranks):
+            if r["gen"][name]["launches"] != _gen_expected(m, d, i):
+                faults.append(f"{name} rank {i} launches "
+                              f"{r['gen'][name]['launches']}")
+        if m == 1:
+            ok, gate = g["exact"], "bit-equal"
+        else:
+            ok = g["decided"] >= MESH_AGREE
+            gate = (f"label equal and conf within {MESH_CONF_TOL} on >= "
+                    f"{MESH_AGREE}")
+        if not ok or not g["index_equal"]:
+            faults.append(f"{name}: {g}")
+        print(f"phase 11b gloo {name}: {n} images in batches of "
+              f"{MESH_GEN_BATCH}, {n / max(r['gen'][name]['secs'] for r in ranks):.2f}"
+              f" img/s (gloo, {GLOO_WORLD} ranks on "
+              f"{sorted({r['device'] for r in ranks})}; not a scaling "
+              f"figure) | against one process at the rank's batch of "
+              f"{MESH_GEN_BATCH // d}: {g['decided']:.7f} of the pixels "
+              f"with the label equal and conf within {MESH_CONF_TOL}, max "
+              f"|conf err| {g['dconf']:.3g} ({gate}: "
+              f"{'pass' if ok else 'FAIL'}); label agreement with one "
+              f"process at batch {MESH_GEN_BATCH} {g['full_agree']:.7f}, "
+              f"ignore share {g['ignore']:.4f} | launches per rank "
+              f"{json.dumps([{k: r['gen'][name]['launches'][k] for k in COUNTERS} for r in ranks])}",
+              flush=True)
+    tr = r0["train"]
+    if any(r["train"]["digest"] != tr["digest"] for r in ranks):
+        faults.append("train: the ranks' parameters differ")
+    unsynced = tr["controls"][f"per-replica BatchNorm (bn_groups "
+                              f"{GLOO_WORLD})"]
+    f64 = tr["f64"]
+    if tr["steps"] != MESH_TRAIN_STEPS or tr["gap"] > MESH_TRAIN_TOL \
+            or unsynced <= MESH_TRAIN_TOL \
+            or f64["mesh"] > MESH_F64_RATIO * f64["one process"]:
+        faults.append(f"train: {tr['steps']} steps, parameter gap "
+                      f"{tr['gap']:.3g}, per-replica BatchNorm control "
+                      f"{unsynced:.3g}, limit {MESH_TRAIN_TOL}; from f64 "
+                      f"{f64}")
+    for i, r in enumerate(ranks):
+        if r["train"]["launches"]["pyr_branches"] != 4 * MESH_TRAIN_STEPS:
+            faults.append(f"train rank {i} launches {r['train']['launches']}")
+    print(f"phase 11b gloo train: {MESH_TRAIN_STEPS} augmented steps of "
+          f"train_segmentation at data {GLOO_WORLD} (global batch "
+          f"{TRAIN_BATCH} at {HW[0]}x{HW[1]} fp32, synced BatchNorm, "
+          f"deterministic cuDNN) {tr['secs'] / MESH_TRAIN_STEPS * 1e3:.1f} "
+          f"ms a step with gloo on one card, one process "
+          f"{tr['single_secs'] / MESH_TRAIN_STEPS * 1e3:.1f} ms | parameters"
+          f" against one process: |a - b| / |b - start| {tr['gap']:.3g} "
+          f"(limit {MESH_TRAIN_TOL}); controls in one process: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in tr["controls"].items())
+          + f" (the second must exceed the limit); from the same steps in "
+          f"f64: the mesh {f64['mesh']:.3g}, one process "
+          f"{f64['one process']:.3g} (ratio limit {MESH_F64_RATIO}); the "
+          f"ranks equal | pyr_branches "
+          f"launches per rank "
+          f"{[r['train']['launches']['pyr_branches'] for r in ranks]}",
+          flush=True)
+    rd = r0["round"]
+    if rd["agree"] < ROUND_AGREE[0] or rd["kc_gap"] > KC_BIN \
+            or rd["gap"] > ROUND_PARAM_TOL \
+            or any(r["round"]["kc"] != rd["kc"] for r in ranks):
+        faults.append(f"round: agreement {rd['agree']}, kc gap "
+                      f"{rd['kc_gap']}, parameter gap {rd['gap']}")
+    print(f"phase 11b gloo round: one self_training round at (model 1, data "
+          f"{GLOO_WORLD}) in {rd['secs']:.3f} s (one process "
+          f"{rd['single_secs']:.3f} s) | against one process: labels "
+          f"{rd['agree']:.7f} (limit {ROUND_AGREE[0]}), kc gap "
+          f"{rd['kc_gap']:.4g} (limit {KC_BIN:.6g}), tuned parameters "
+          f"{rd['gap']:.3g} (limit {ROUND_PARAM_TOL}) | launches per rank "
+          f"{json.dumps([{k: r['round']['launches'][k] for k in COUNTERS} for r in ranks])}"
+          f" | spawn {wall:.1f} s", flush=True)
+    if faults:
+        raise AssertionError("phase 11b: " + "; ".join(faults))
+    return [r["launches"] for r in ranks]
+
+
+def mesh_cli(smi: str):
+    """11b's CLI: phase 9's `pseudo` over its 256 target PNGs in one
+    process, then with `--model-parallel 2` over 2 ranks launched by
+    `torch.distributed.run`; the label PNGs compared."""
+    import signal
+    import sys
+    import tempfile
+
+    from mspl_tpu_torch.data.label_io import load_label_png
+    from mspl_tpu_torch.utils.checkpoint import save_checkpoint
+    from mspl_tpu_torch.utils.flax_bridge import flax_variables
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as root:
+        _write_cli_data(root, sets=("target",))
+        ckpts = []
+        for s, (name, c) in zip(main_sources("cpu"), SOURCES):
+            ck = os.path.join(root, f"ck_{name}")
+            save_checkpoint(ck, flax_variables(s.model), {
+                "dataset": name, "model": "espnetv2", "s": 2.0,
+                "num_classes": c, "bf16": True, "input_hw": list(HW),
+                "in_channels": 3}, name="model_best")
+            ckpts.append(ck)
+
+        def argv(out):
+            return ["pseudo", "--checkpoints", *ckpts, "--data-root", root,
+                    "--target-list", os.path.join(root, "target.txt"),
+                    "--out-dir", os.path.join(root, out), "--batch-size",
+                    str(CLI_BATCH), "--fusion", "soft", "--p", "0.2"
+                    ] + CLI_SIZE
+
+        res, single_secs, _ = _cli(argv("single"), {})
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(GLOO_WORLD), "-m",
+               "mspl_tpu_torch.cli", *argv("mesh"), "--model-parallel",
+               str(GLOO_WORLD)]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
+                os.pathsep) if p]))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=here, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            log, _ = proc.communicate(timeout=MESH_SPAWN_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise AssertionError(f"11b CLI: torch.distributed.run not done "
+                                 f"in {MESH_SPAWN_S} s")
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"11b CLI: torch.distributed.run exited "
+                                 f"{proc.returncode}:\n{log[-4000:]}")
+        names = sorted(f for f in os.listdir(os.path.join(root, "single"))
+                       if f.startswith("pseudo_"))
+        got = np.stack([load_label_png(os.path.join(root, "mesh", f))
+                        for f in names])
+        want = np.stack([load_label_png(os.path.join(root, "single", f))
+                         for f in names])
+        agree = float((got == want).mean())
+        kc_ranks = re.findall(r"kc=(\[[^\]]*\])", log)
+    print(f"phase 11b CLI: pseudo --model-parallel {GLOO_WORLD} through "
+          f"torch.distributed.run --nproc-per-node {GLOO_WORLD} (gloo on "
+          f"one card) over {len(names)} PNGs in {secs:.2f} s with the "
+          f"launch, one process {single_secs:.2f} s | label PNGs against "
+          f"the single-process pseudo: agreement {agree:.7f} (limit "
+          f"{MESH_AGREE}) | kc one process "
+          f"{np.round(res['kc'], 4).tolist()}, the ranks' "
+          f"{kc_ranks[-1] if kc_ranks else 'not printed'}",
+          flush=True)
+    if len(names) != CLI_TARGET or agree < MESH_AGREE:
+        raise AssertionError(f"11b CLI: {len(names)} PNGs, agreement "
+                             f"{agree}")
+
+
+def phase_mesh(smi: str, ref):
+    """Phase 11: the mesh (`parallel/mesh.py`) on the card: 11a NCCL at
+    world = the card count, 11b gloo at world 2 (generation, train steps,
+    a round, the CLI).  Returns each kernel's launches per rank in each."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    nccl = mesh_nccl(smi, ref)
+    gloo = mesh_gloo(smi)
+    mesh_cli(smi)
+    print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s on {smi}",
+          flush=True)
+    return {k: {"nccl": [r[k] for r in nccl], "gloo": [r[k] for r in gloo]}
+            for k in ALL_COUNTERS}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batches", type=int, default=8,
@@ -3572,6 +4127,7 @@ def main():
         args.batches, smi, args.profile)
     launches.update(phase_routes(args.batches, smi, gen, pool, lab_default,
                                  args.profile))
+    mesh_ref = mesh_reference(gen, pool)
     sources = gen.sources
     del gen, pool
     train_launches = phase_train(smi, args.profile)
@@ -3580,7 +4136,10 @@ def main():
     cli_launches = phase_cli(smi, sources)
     del sources
     cls_launches, remat_launches = phase_pretrain(smi)
+    mesh_launches = phase_mesh(smi, mesh_ref)
+    del mesh_ref
     for r in rows:
+        r["mesh_launches"] = mesh_launches[r["name"]]
         r["launches"] = launches[r["name"]]
         r["round_launches"] = round_launches[r["name"]]
         r["deeplab_round_launches"] = deeplab_launches[r["name"]]

@@ -31,8 +31,22 @@ train step; `selftrain` ignores them, as the JAX CLI's does.
 which that package holds identical to its NHWC one; the port's decoder is
 channel-major already, so the flag changes nothing here but keeps the
 reference's refusals (espnetv2 only, not with `--bn-groups` > 1).
-`--model-parallel` > 1 (ROADMAP A.6) and `bench` (the port's benchmark,
-the work of a benchmark change) exit with a message naming them.
+`bench` (the port's benchmark, the work of a benchmark change) exits
+with a message naming it.
+
+On several cards, one process a card:
+
+  python -m torch.distributed.run --standalone --nproc-per-node N \
+      -m mspl_tpu_torch.cli <command> ...
+
+(or the JAX CLI's MSPL_COORDINATOR / MSPL_NUM_PROCESSES / MSPL_PROCESS_ID
+a process).  `main` joins the job first (`parallel/mesh.py
+maybe_init_distributed`: nccl when each rank has a card of its own, gloo
+when ranks share one), and `train`, `pretrain`, `pseudo` and `selftrain`
+run on the mesh of the JAX CLI's `_production_mesh`: the largest data
+axis that divides `--batch-size`, with `--model-parallel` source slices
+for `pseudo` and `selftrain`.  Only rank 0 prints and writes files; the
+other commands run on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -44,7 +58,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from mspl_tpu_torch.parallel.mesh import (barrier, make_mesh_for_batch,
+                                          maybe_init_distributed)
 from mspl_tpu_torch.utils.print_utils import (print_info_message,
                                               print_warning_message)
 from mspl_tpu_torch.utils.registry import (CONF_MODES, FUSION_MODES,
@@ -57,17 +74,41 @@ from mspl_tpu_torch.utils.registry import (CONF_MODES, FUSION_MODES,
 from mspl_tpu_torch.utils.torch_import import arch_meta_kw as _arch_meta_kw
 
 MODEL_CKPT = "model_best"
-_LATER = "belongs to a later slice of the PyTorch port (ROADMAP {})"
 
 
-def _later(what: str, item: str) -> SystemExit:
-    return SystemExit(f"{what} {_LATER.format(item)}")
+def _is_first() -> bool:
+    """Whether this process is rank 0 of its job, or alone."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _info(msg: str) -> None:
+    if _is_first():
+        print_info_message(msg)
+
+
+def _production_mesh(batch_size: int, model_parallel: int = 1):
+    """The (model, data) mesh of `train`, `pretrain`, `pseudo` and
+    `selftrain`: None for a single rank without model parallelism, else
+    the largest data axis dividing `batch_size` with `model_parallel`
+    source slices."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world == 1 and model_parallel <= 1:
+        return None
+    if model_parallel > world:
+        raise SystemExit(
+            f"--model-parallel {model_parallel} exceeds the world size "
+            f"({world} ranks); the model axis cannot be wider than the mesh")
+    mesh = make_mesh_for_batch(batch_size, model=model_parallel)
+    _info(f"mesh: {mesh.shape} over ranks {list(mesh.ranks)} of {world}")
+    return mesh
 
 
 def _save_model(ckpt_dir: str, variables: Dict, meta: Dict) -> None:
+    """Write a model checkpoint (rank 0 alone under a mesh)."""
     from mspl_tpu_torch.utils.checkpoint import save_checkpoint
 
-    save_checkpoint(ckpt_dir, variables, meta, name=MODEL_CKPT)
+    if _is_first():
+        save_checkpoint(ckpt_dir, variables, meta, name=MODEL_CKPT)
 
 
 def _is_torch_ckpt(path: str) -> bool:
@@ -115,7 +156,7 @@ def _print_model_card(model) -> None:
     """The parameter count at model build (the FLOPs wait for the port's
     profiling module, ROADMAP A.7)."""
     n_params = sum(p.numel() for p in model.parameters())
-    print_info_message(f"model: {n_params / 1e6:.3f} M params")
+    _info(f"model: {n_params / 1e6:.3f} M params")
 
 
 def _check_cm_decoder(args) -> None:
@@ -127,12 +168,6 @@ def _check_cm_decoder(args) -> None:
         raise SystemExit("--cm-decoder is espnetv2-only")
     if getattr(args, "bn_groups", 1) > 1:
         raise SystemExit("--cm-decoder is incompatible with --bn-groups > 1")
-
-
-def _check_model_parallel(args) -> None:
-    if getattr(args, "model_parallel", 1) > 1:
-        raise _later("--model-parallel > 1 (sources across devices)",
-                     "A.6")
 
 
 def _add_common_train_flags(p: argparse.ArgumentParser) -> None:
@@ -239,7 +274,9 @@ def cmd_train(args) -> Dict:
     )
     res = train_segmentation(model, None, train_loader, val_loader,
                              info.num_classes, cfg,
-                             class_weights=class_weights, device=args.device)
+                             class_weights=class_weights,
+                             mesh=_production_mesh(args.batch_size),
+                             device=args.device)
     _save_model(
         args.ckpt_dir, flax_variables(model),
         {"dataset": args.dataset, "model": args.model, "s": args.s,
@@ -247,7 +284,7 @@ def cmd_train(args) -> Dict:
          "input_hw": list(train_ds.shape_hw), "in_channels": in_ch,
          "best_miou": res["best_miou"]},
     )
-    print_info_message(f"train done; best val mIoU {res['best_miou']:.4f}")
+    _info(f"train done; best val mIoU {res['best_miou']:.4f}")
     return res
 
 
@@ -266,7 +303,7 @@ def _load_pretrained_encoder(model, pretrained: str) -> None:
                         num_classes=pmeta["num_classes"])
     load_flax_variables(cls_model, variables)
     copy_encoder(model, cls_model)
-    print_info_message(f"initialized encoder from {pretrained}")
+    _info(f"initialized encoder from {pretrained}")
 
 
 def cmd_pretrain(args) -> Dict:
@@ -299,7 +336,7 @@ def cmd_pretrain(args) -> Dict:
         model, None,
         DataLoader(train_ds, args.batch_size, shuffle=True, seed=args.seed),
         DataLoader(val_ds, args.batch_size) if val_ds else None, cfg,
-        device=args.device)
+        mesh=_production_mesh(args.batch_size), device=args.device)
     _save_model(
         args.ckpt_dir, flax_variables(model),
         {"dataset": "classification", "model": "eespnet_cls", "s": args.s,
@@ -307,7 +344,7 @@ def cmd_pretrain(args) -> Dict:
          "input_hw": list(train_ds.shape_hw),
          "best_acc": res["best_acc"]},
     )
-    print_info_message(f"pretrain done; best val acc {res['best_acc']:.4f}")
+    _info(f"pretrain done; best val acc {res['best_acc']:.4f}")
     return res
 
 
@@ -474,18 +511,15 @@ def _check_min_agree(min_agree, fusion: str, max_models: int) -> None:
 
 def cmd_pseudo(args) -> Dict:
     from mspl_tpu_torch.data.datasets import GreenhouseRGBD
-    from mspl_tpu_torch.data.label_io import (save_colorized_png,
-                                              save_label_png,
-                                              write_train_list)
     from mspl_tpu_torch.data.loader import DataLoader
     from mspl_tpu_torch.pseudo.cbst import apply_kc_device, sweep_kc
     from mspl_tpu_torch.pseudo.generate import generate_pseudo_labels
     from mspl_tpu_torch.utils.registry import IGNORE_LABEL
 
-    _check_model_parallel(args)
     info = dataset_info("greenhouse")
     t = info.num_classes
     _check_min_agree(args.min_agree, args.fusion, len(args.checkpoints))
+    mesh = _production_mesh(args.batch_size, args.model_parallel)
     sources = _load_sources(args.checkpoints, t, args.device)
     ds = GreenhouseRGBD(args.data_root, args.target_list,
                         size_wh=tuple(args.size) if args.size else None,
@@ -504,7 +538,7 @@ def cmd_pseudo(args) -> Dict:
     on_device = not args.save_conf
     labels, confs, indices = generate_pseudo_labels(
         sources, loader, mode=args.fusion, use_pallas=args.pallas,
-        conf_mode=conf_mode, min_agree=args.min_agree,
+        conf_mode=conf_mode, min_agree=args.min_agree, mesh=mesh,
         return_device=on_device, device=args.device)
 
     if args.p is not None:  # class-balanced thresholds
@@ -518,6 +552,20 @@ def cmd_pseudo(args) -> Dict:
         safe = np.where(labels == IGNORE_LABEL, 0, labels)
         labels = np.where(confs >= kc[safe], labels,
                           IGNORE_LABEL).astype(np.int32)
+
+    kept = float((labels != IGNORE_LABEL).mean())
+    if _is_first():
+        _write_pseudo(args, ds, labels, confs, indices, kc, kept)
+    barrier()  # the files are written when every rank returns
+    return {"kc": kc, "kept": kept, "n": len(indices)}
+
+
+def _write_pseudo(args, ds, labels, confs, indices, kc, kept) -> None:
+    """`pseudo`'s files: a label PNG an image (and its colorized view and
+    confidences where asked), the train list."""
+    from mspl_tpu_torch.data.label_io import (save_colorized_png,
+                                              save_label_png,
+                                              write_train_list)
 
     os.makedirs(args.out_dir, exist_ok=True)
     img_paths, lab_paths = [], []
@@ -535,11 +583,9 @@ def cmd_pseudo(args) -> Dict:
         lab_paths.append(lp)
     write_train_list(os.path.join(args.out_dir, "train_list.txt"),
                      img_paths, lab_paths)
-    kept = float((labels != IGNORE_LABEL).mean())
     print_info_message(
         f"pseudo-labels for {len(indices)} images -> {args.out_dir} "
         f"(kept {kept:.2%}, kc={np.round(kc, 3).tolist()})")
-    return {"kc": kc, "kept": kept, "n": len(indices)}
 
 
 def cmd_selftrain(args) -> Dict:
@@ -549,9 +595,9 @@ def cmd_selftrain(args) -> Dict:
                                                      self_training)
     from mspl_tpu_torch.utils.flax_bridge import flax_variables
 
-    _check_model_parallel(args)
     if not args.init_checkpoint:
         _check_cm_decoder(args)
+    mesh = _production_mesh(args.batch_size, args.model_parallel)
     info = dataset_info("greenhouse")
     t = info.num_classes
     sources = _load_sources(args.checkpoints, t, args.device)
@@ -591,7 +637,7 @@ def cmd_selftrain(args) -> Dict:
         ckpt_dir=args.ckpt_dir, use_pallas=args.pallas,
     )
     res = self_training(model, None, sources, target_ds, val_loader, t, cfg,
-                        device=args.device)
+                        mesh=mesh, device=args.device)
     _save_model(
         args.ckpt_dir or "./runs/selftrain", flax_variables(res["model"]),
         {"dataset": "greenhouse", "model": args.model, "s": args.s,
@@ -599,7 +645,7 @@ def cmd_selftrain(args) -> Dict:
          "input_hw": list(target_ds.shape_hw), "in_channels": in_ch,
          "best_miou": res["best_miou"]},
     )
-    print_info_message(f"self-training done; best mIoU {res['best_miou']:.4f}")
+    _info(f"self-training done; best mIoU {res['best_miou']:.4f}")
     return res
 
 
@@ -670,8 +716,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help='list file: "image_path class_id" per line')
     pt.add_argument("--val-list", default=None)
     _add_common_train_flags(pt)
-    t.set_defaults(fn=cmd_train)
-    pt.set_defaults(fn=cmd_pretrain, epochs=90, lr=0.5, scheduler="hybrid")
+    t.set_defaults(fn=cmd_train, on_mesh=True)
+    pt.set_defaults(fn=cmd_pretrain, epochs=90, lr=0.5, scheduler="hybrid",
+                    on_mesh=True)
 
     e = sub.add_parser("eval", help="evaluate a checkpoint (per-class IoU)")
     e.add_argument("--checkpoint", required=True)
@@ -715,7 +762,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "pixel (default strict majority)")
     g.add_argument("--model-parallel", type=int, default=1,
                    help="place sources across a 'model' mesh axis of this "
-                        "size (ROADMAP A.6)")
+                        "size (ranks of a torch.distributed.run launch)")
     g.add_argument("--rgbd", action="store_true",
                    help="greenhouse RGB-D target list ('rgb depth' lines); "
                         "3-channel sources see the RGB slice")
@@ -737,7 +784,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--size", type=int, nargs=2, default=None,
                    metavar=("W", "H"))
     g.add_argument("--pallas", action="store_true")
-    g.set_defaults(fn=cmd_pseudo)
+    g.set_defaults(fn=cmd_pseudo, on_mesh=True)
 
     s = sub.add_parser("selftrain", help="multi-round MSPL self-training")
     s.add_argument("--checkpoints", nargs="+", required=True)
@@ -755,13 +802,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "pixel (default strict majority)")
     s.add_argument("--model-parallel", type=int, default=1,
                    help="place ensemble members across a 'model' mesh axis "
-                        "of this size during generation (ROADMAP A.6)")
+                        "of this size during generation (ranks of a "
+                        "torch.distributed.run launch)")
     s.add_argument("--reg-mode", default="kld", choices=("none", "kld", "ent"))
     s.add_argument("--reg-weight", type=float, default=0.1)
     s.add_argument("--out-dir", default=None)
     s.add_argument("--pallas", action="store_true")
     _add_common_train_flags(s)
-    s.set_defaults(fn=cmd_selftrain, epochs=5, lr=1e-3, scheduler="poly")
+    s.set_defaults(fn=cmd_selftrain, epochs=5, lr=1e-3, scheduler="poly",
+                   on_mesh=True)
 
     b = sub.add_parser("bench", help="run the headline benchmark "
                                      "(ROADMAP A.5)")
@@ -799,12 +848,21 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None, device="cuda"):
     """Parse `argv` (default: the command line) and run the subcommand on
-    `device`; a CUDA device that is not there is an error."""
+    `device` (in a multi-process job, this rank's card); a CUDA device
+    that is not there is an error.  Joins a multi-process job first when
+    the launch asks for one (module docstring)."""
+    if maybe_init_distributed():
+        _info("joined a multi-process job (torch.distributed)")
     args = build_parser().parse_args(argv)
     args.device = torch.device(device)
-    if args.device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("mspl_tpu_torch.cli runs on a CUDA device and "
-                         "torch sees none")
+    if args.device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("mspl_tpu_torch.cli runs on a CUDA device and "
+                             "torch sees none")
+        if args.device.index is None:
+            args.device = torch.device("cuda", torch.cuda.current_device())
+    if not getattr(args, "on_mesh", False) and not _is_first():
+        return None
     return args.fn(args)
 
 

@@ -20,7 +20,7 @@ which the tests hold against the reference at the reference's own draws.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -137,16 +137,22 @@ def train_transform(imgs: torch.Tensor, labels: torch.Tensor,
                     crop_hw: Tuple[int, int], generator: torch.Generator,
                     scale_range: Tuple[float, float] = (0.5, 2.0),
                     mean: Tuple[float, float, float] = IMAGENET_MEAN,
-                    std: Tuple[float, float, float] = IMAGENET_STD
+                    std: Tuple[float, float, float] = IMAGENET_STD,
+                    rows: Optional[Tuple[int, int]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched train-time pipeline on the images' device: normalize, then
     the fused scale / crop / flip at draws from `generator`.  imgs uint8
     [B, H, W, C], labels [B, H, W] -> (float32 [B, C, ch, cw], labels
-    [B, ch, cw])."""
-    draws = draw_scale_crop_flip(imgs.shape[0], tuple(imgs.shape[1:3]),
-                                 crop_hw, generator, scale_range)
+    [B, ch, cw]).  `rows` (offset, global batch) says that the batch is
+    rows [offset, offset + B) of a global batch (a mesh's data slice): the
+    draws are made for the global batch and these rows take theirs, so a
+    rank's crops are the single-device run's."""
+    n = imgs.shape[0]
+    start, total = (0, n) if rows is None else rows
+    draws = draw_scale_crop_flip(total, tuple(imgs.shape[1:3]), crop_hw,
+                                 generator, scale_range)
     return scale_crop_flip(normalize(imgs, mean, std), labels, crop_hw,
-                           *draws)
+                           *(d[start:start + n] for d in draws))
 
 
 def eval_transform(

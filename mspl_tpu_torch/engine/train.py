@@ -36,8 +36,7 @@ JAX package's flax `TrainState` (`train_state_tree`), so either package
 resumes from the other's checkpoint: SGD's momentum buffer is optax's
 `trace` (no buffer yet is a zero trace: both take the same first step),
 AdamW's `exp_avg`/`exp_avg_sq` are `mu`/`nu`, and its step and the
-schedule's are optax's counts.  The device mesh (ROADMAP A.6) belongs to a
-later slice of the port and raises.
+schedule's are optax's counts.
 
 `bn_groups` > 1 runs the step's forward and backward under
 `bn_stat_groups` (`layers/conv_blocks.py`): every BatchNorm of the model
@@ -50,6 +49,18 @@ the step's group count; it draws no random numbers (the segmentation
 forward has no dropout, and the crops are drawn before it), so the
 recomputed activations are the forward's and the step's numbers do not
 change.  Kernel ③ launches again in the recompute.
+
+Under a mesh (`parallel/mesh.py`; `make_train_step(mesh=)`,
+`evaluate(mesh=)`, `train_segmentation(mesh=)`) each rank takes its data
+slice of every global batch, the crops drawn for the global batch (so a
+rank's are the single-device run's), BatchNorm over the global batch
+(`bn_sync`), the loss over the global batch's valid pixels, and the
+gradients summed over the data axis in one flat bucket a dtype before the
+optimizer step; the state is replicated at the start and stays equal on
+every rank, so the step is the single-device step on the global batch up
+to rounding.  Model slices of the mesh are replicas of one another.  Only
+the mesh's first rank logs and writes checkpoints; every rank resumes from
+the same file; ranks outside the mesh receive the trained weights.
 """
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
@@ -68,7 +80,10 @@ from mspl_tpu_torch.data.transforms import normalize, train_transform
 from mspl_tpu_torch.engine.losses import segmentation_loss
 from mspl_tpu_torch.engine.metrics import MIOU, confusion_matrix
 from mspl_tpu_torch.engine.schedules import Schedule, build_schedule
-from mspl_tpu_torch.layers.conv_blocks import bn_stat_groups, frozen_bn_stats
+from mspl_tpu_torch.layers.conv_blocks import (bn_stat_groups, bn_sync,
+                                               frozen_bn_stats)
+from mspl_tpu_torch.parallel.mesh import (barrier, psum, replicate,
+                                          shard_batch, share_with_outside)
 from mspl_tpu_torch.pseudo.generate import load_variables
 from mspl_tpu_torch.utils.checkpoint import (has_checkpoint, load_checkpoint,
                                              save_checkpoint)
@@ -78,9 +93,6 @@ from mspl_tpu_torch.utils.flax_bridge import (flax_variables,
 from mspl_tpu_torch.utils.print_utils import (print_info_message,
                                               print_log_message)
 from mspl_tpu_torch.utils.tb_logger import ScalarLogger
-
-_LATER = "belongs to a later slice of the PyTorch port (ROADMAP {})"
-
 
 def build_optimizer(name: str, params: Iterable[torch.Tensor],
                     schedule: Schedule, momentum: float = 0.9,
@@ -202,16 +214,60 @@ def step_generator(seed: int, step: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed * 2 ** 32 + step)
 
 
-def _remat_context(groups: int):
+@contextlib.contextmanager
+def _bn_context(groups: int, sync):
+    """The step's BatchNorm statistics: `groups` ghost-batch groups of the
+    global batch, and with `sync` (group, D) its split over a data axis."""
+    with bn_stat_groups(groups), bn_sync(*(sync or (None, 1))):
+        yield
+
+
+def _remat_context(groups: int, sync):
     """`torch.utils.checkpoint`'s contexts: none around the forward (the
-    step's own `bn_stat_groups` holds there), the step's group count and
-    frozen running statistics around the recompute, which may run in
-    autograd's device thread."""
+    step's own BatchNorm contexts hold there), the step's and frozen
+    running statistics around the recompute, which may run in autograd's
+    device thread."""
     @contextlib.contextmanager
     def recompute():
-        with bn_stat_groups(groups), frozen_bn_stats():
+        with _bn_context(groups, sync), frozen_bn_stats():
             yield
     return lambda: (contextlib.nullcontext(), recompute())
+
+
+def data_axis(mesh):
+    """(the data axis's process group, and the (group, D) that `bn_sync`
+    takes where D > 1, else None); (None, None) without a mesh."""
+    if mesh is None:
+        return None, None
+    group, d = mesh.group("data"), mesh.shape["data"]
+    return group, ((group, d) if d > 1 else None)
+
+
+def data_rows(batch: Dict, mesh) -> Tuple[Dict, Optional[Tuple[int, int]]]:
+    """(this rank's slice of the global `batch`, (its first row, the
+    global batch size)); the batch as it is and None without a mesh."""
+    if mesh is None:
+        return batch, None
+    total = len(batch["image"])
+    local = shard_batch(batch, mesh)
+    return local, (mesh.index("data") * len(local["image"]), total)
+
+
+def sum_grads(params: Iterable[torch.Tensor], group) -> None:
+    """Sum the parameters' gradients over the ranks of `group`, in place:
+    one `all_reduce` of a flat bucket a dtype."""
+    by_dtype: Dict[torch.dtype, list] = {}
+    for p in params:
+        if p.grad is not None:
+            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        if group is not None:
+            dist.all_reduce(flat, group=group)
+        off = 0
+        for g in grads:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
 
 
 def make_train_step(model: nn.Module,
@@ -220,11 +276,11 @@ def make_train_step(model: nn.Module,
                     class_weights=None, reg_mode: str = "none",
                     reg_weight: float = 0.0, augment: bool = True,
                     mean=None, std=None, remat: bool = False,
-                    bn_groups: int = 1, *, device="cuda"):
+                    bn_groups: int = 1, *, device="cuda", mesh=None):
     """Returns `step(state, batch, rng=None) -> (state, {"loss"})` for
     `model`, which moves to `device`.  The parameters, their order and
     their defaults are the reference's, less its JAX-only `donate` and
-    `packer`.
+    `packer`, plus the port's `device` and `mesh`.
 
     `batch`: "image" uint8 [B, H, W, C], "label" [B, H, W] and optionally
     "valid" [B] (rows that count), numpy arrays or tensors on any device.
@@ -235,12 +291,19 @@ def make_train_step(model: nn.Module,
     forward's activations in the backward; `bn_groups` > 1 takes ghost-
     batch BatchNorm statistics (module docstring).  The loss is the
     segmentation loss over the model's channel-major logits; the returned
-    loss is a 0-d f32 tensor on `device`."""
+    loss is a 0-d f32 tensor on `device`.
+
+    With `mesh`, `batch` is the global batch, the same on every rank of
+    the mesh: the step takes this rank's data slice of it and runs the
+    module docstring's data-parallel step; the loss returned is the
+    global batch's.  `bn_groups` > 1 must then be a multiple of the data
+    axis."""
     if augment and crop_hw is None:
         raise ValueError("augment=True needs crop_hw")
+    group, sync = data_axis(mesh)
     forward = model
     if remat:
-        context_fn = _remat_context(bn_groups)
+        context_fn = _remat_context(bn_groups, sync)
 
         def forward(x):
             return checkpoint(model, x, use_reentrant=False,
@@ -257,29 +320,34 @@ def make_train_step(model: nn.Module,
         if state.model is not model:
             raise ValueError("the state holds another model than the step")
         model.train()
+        batch, rows = data_rows(batch, mesh)
         imgs, labels = _on(batch, "image", device), _on(batch, "label",
                                                         device)
         if augment:
             imgs, labels = train_transform(
                 imgs, labels, crop_hw,
                 rng if rng is not None else step_generator(0, state.step),
-                scale_range, **norm_kw)
+                scale_range, rows=rows, **norm_kw)
         else:
             imgs = normalize(imgs, **norm_kw)
         state.optimizer.zero_grad(set_to_none=True)
-        with bn_stat_groups(bn_groups):
+        with _bn_context(bn_groups, sync):
             logits = forward(imgs)
             loss = segmentation_loss(
                 logits, labels, class_weights=cw, reg_mode=reg_mode,
                 reg_weight=reg_weight,
-                batch_mask=_on(batch, "valid", device))
+                batch_mask=_on(batch, "valid", device), group=group)
             loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            sum_grads(model.parameters(), group)
+            loss = psum(loss.clone(), mesh)
         lr = state.schedule(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
+        for pg in state.optimizer.param_groups:
+            pg["lr"] = lr
         state.optimizer.step()
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, {"loss": loss}
 
     return step
 
@@ -305,12 +373,19 @@ def make_eval_step(model: nn.Module, num_classes: int, mean=None, std=None,
     return step
 
 
-def evaluate(eval_step, loader: Iterable[Dict],
-             num_classes: int) -> Tuple[np.ndarray, float]:
-    """Run the eval loop; returns (per-class IoU, mIoU)."""
+def evaluate(eval_step, loader: Iterable[Dict], num_classes: int,
+             mesh=None) -> Tuple[np.ndarray, float]:
+    """Run the eval loop; returns (per-class IoU, mIoU).  With `mesh`,
+    each rank of the mesh evaluates its data slice of every batch and the
+    confusion matrices are summed over the data axis, so every rank
+    returns the whole set's."""
     miou = MIOU(num_classes)
     for batch in loader:
-        miou.update(eval_step(batch))
+        if mesh is None:
+            miou.update(eval_step(batch))
+        else:
+            miou.update(psum(eval_step(shard_batch(batch, mesh)).clone(),
+                             mesh))
     return miou.get_iou()
 
 
@@ -356,10 +431,10 @@ def train_segmentation(
     """The training loop: per epoch the train steps, the val mIoU and the
     best mIoU.  `variables` (a flax tree of numpy arrays or a state dict;
     None keeps the model's weights) are loaded into `model`, which moves
-    to `device` and is trained in place.  Returns {'state', 'best_miou',
-    'history'}."""
-    if mesh is not None:
-        raise NotImplementedError(f"a device mesh {_LATER.format('A.6')}")
+    to `device` and is trained in place.  With `mesh`, every rank of the
+    job runs this call with the same loaders and mesh (module docstring);
+    each ends with the same weights and result.  Returns {'state',
+    'best_miou', 'history'}."""
     if variables is not None:
         load_variables(model, variables)
     steps_per_epoch = max(len(train_loader), 1)
@@ -368,6 +443,7 @@ def train_segmentation(
                               steps_per_epoch=steps_per_epoch)
     state = create_train_state(model, cfg.optimizer, schedule, cfg.momentum,
                                cfg.weight_decay, device=device)
+    first = mesh is None or mesh.is_first
 
     start_epoch, start_step_in_epoch, best_miou = 0, 0, -1.0
     if cfg.resume and cfg.ckpt_dir and has_checkpoint(cfg.ckpt_dir):
@@ -381,22 +457,43 @@ def train_segmentation(
             # batch; the loader's order is a function of seed + epoch, so
             # the remaining batches are the same
             start_epoch, start_step_in_epoch = ck_epoch, sie
-            print_info_message(f"resumed mid-epoch {ck_epoch} at step {sie}, "
-                               f"best mIoU {best_miou:.4f}")
+            msg = (f"resumed mid-epoch {ck_epoch} at step {sie}, "
+                   f"best mIoU {best_miou:.4f}")
         else:
             start_epoch = ck_epoch + 1
-            print_info_message(f"resumed from epoch {ck_epoch}, "
-                               f"best mIoU {best_miou:.4f}")
+            msg = (f"resumed from epoch {ck_epoch}, "
+                   f"best mIoU {best_miou:.4f}")
+        if first:
+            print_info_message(msg)
+    history = []
+    if mesh is not None:
+        replicate(model, mesh)
+    if mesh is None or mesh.coords is not None:
+        best_miou = _epochs(state, train_loader, val_loader, num_classes,
+                            cfg, class_weights, mesh, device, first,
+                            start_epoch, start_step_in_epoch, best_miou,
+                            history)
+    best_miou, history, state.step = share_with_outside(
+        model, mesh, (best_miou, history, state.step))
+    if mesh is not None:
+        barrier()
+    return {"state": state, "best_miou": best_miou, "history": history}
 
+
+def _epochs(state, train_loader, val_loader, num_classes, cfg, class_weights,
+            mesh, device, first, start_epoch, start_step_in_epoch,
+            best_miou, history) -> float:
+    """`train_segmentation`'s epochs on a rank of the mesh (or alone):
+    appends to `history`, returns the best mIoU."""
+    model, schedule = state.model, state.schedule
+    steps_per_epoch = max(len(train_loader), 1)
     train_step = make_train_step(
         model, class_weights=class_weights, reg_mode=cfg.reg_mode,
         reg_weight=cfg.reg_weight, augment=cfg.augment, crop_hw=cfg.crop_hw,
         scale_range=cfg.scale_range, remat=cfg.remat,
-        bn_groups=cfg.bn_groups, device=device)
+        bn_groups=cfg.bn_groups, device=device, mesh=mesh)
     eval_step = make_eval_step(model, num_classes, device=device)
-    logger = ScalarLogger(cfg.log_dir)
-    history = []
-    stopped = False
+    logger = ScalarLogger(cfg.log_dir if first else None)
 
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.time()
@@ -407,13 +504,14 @@ def train_segmentation(
         batches = (train_loader.iter_batches(skip)
                    if hasattr(train_loader, "iter_batches")
                    else train_loader)
+        stopped = False
         for b, batch in enumerate(batches, start=skip):
             step_i = epoch * steps_per_epoch + b
             state, metrics = train_step(state, batch,
                                         step_generator(cfg.seed, step_i))
             losses.append(metrics["loss"])
             done_in_epoch = b + 1
-            if (cfg.ckpt_every_steps and cfg.ckpt_dir
+            if (cfg.ckpt_every_steps and cfg.ckpt_dir and first
                     and done_in_epoch < steps_per_epoch
                     and done_in_epoch % cfg.ckpt_every_steps == 0):
                 save_checkpoint(
@@ -433,12 +531,12 @@ def train_segmentation(
 
         miou = None
         if val_loader is not None and (epoch + 1) % cfg.eval_every == 0:
-            _, miou = evaluate(eval_step, val_loader, num_classes)
+            _, miou = evaluate(eval_step, val_loader, num_classes, mesh)
             logger.add_scalar("val/miou", miou, epoch)
         is_best = miou is not None and miou > best_miou
         if is_best:
             best_miou = miou
-        if cfg.ckpt_dir:
+        if cfg.ckpt_dir and first:
             save_checkpoint(
                 cfg.ckpt_dir, train_state_tree(state),
                 {"epoch": epoch, "best_miou": best_miou,
@@ -446,11 +544,11 @@ def train_segmentation(
                 is_best=is_best)
         history.append({"epoch": epoch, "loss": mean_loss, "miou": miou,
                         "lr": lr_now, "sec": time.time() - t0})
-        if cfg.verbose:
+        if cfg.verbose and first:
             print_log_message(
                 f"epoch {epoch}: loss {mean_loss:.4f} lr {lr_now:.5f}"
                 + (f" val mIoU {miou:.4f}{' *' if is_best else ''}"
                    if miou is not None else ""))
 
     logger.close()
-    return {"state": state, "best_miou": best_miou, "history": history}
+    return best_miou

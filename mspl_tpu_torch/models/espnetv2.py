@@ -153,12 +153,15 @@ class EESPNet(nn.Module):
         return l1, l2, l3, l4
 
     def forward(self, x: torch.Tensor,
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                rng: Optional[torch.Generator] = None,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """Class logits, f32 [B, num_classes], of NCHW `x`.  In train with
         `drop_rate` > 0, dropout keeps each pooled feature with probability
         1 - drop_rate and scales the kept ones by 1 / (1 - drop_rate); its
         mask is drawn from `rng` (a generator on any device: a CPU one
-        seeds a generator on x's device)."""
+        seeds a generator on x's device), for the global batch whose rows
+        [offset, offset + B) `x` is where `rows` = (offset, global batch)
+        says so (a mesh's data slice)."""
         if self.num_classes is None:
             raise ValueError("this EESPNet is an encoder (`encode`); build "
                              "it with num_classes for the classifier")
@@ -168,7 +171,7 @@ class EESPNet(nn.Module):
         l5 = self.level5_exp(self.level5_dw(l5))
         pooled = l5.mean(dim=(2, 3))
         if self.training and self.drop_rate > 0.0:
-            pooled = dropout(pooled, self.drop_rate, rng)
+            pooled = dropout(pooled, self.drop_rate, rng, rows)
         # flax's Dense promotes a bf16 input against its f32 parameters
         p = pooled.to(torch.promote_types(pooled.dtype, torch.float32))
         fc = self.classifier
@@ -176,16 +179,21 @@ class EESPNet(nn.Module):
 
 
 def dropout(x: torch.Tensor, rate: float,
-            rng: Optional[torch.Generator]) -> torch.Tensor:
+            rng: Optional[torch.Generator],
+            rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """`x` with each element kept with probability 1 - `rate` and scaled by
     1 / (1 - rate), the mask drawn from `rng` on x's device (a generator
-    on another device seeds one there from a draw of its own)."""
+    on another device seeds one there from a draw of its own); with
+    `rows` (offset, global batch), drawn for the global batch and its
+    rows [offset, offset + B) taken."""
     if rng is None:
         raise ValueError("dropout in train needs a generator")
     if rng.device != x.device:
         seed = int(torch.randint(2 ** 62, (1,), generator=rng))
         rng = torch.Generator(x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=rng, device=x.device) >= rate
+    start, total = (0, x.shape[0]) if rows is None else rows
+    u = torch.rand((total, *x.shape[1:]), generator=rng, device=x.device)
+    keep = u[start:start + x.shape[0]] >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

@@ -80,7 +80,9 @@ def entropy_confidence(dist: torch.Tensor) -> torch.Tensor:
     return 1.0 - (-xlogx.sum(dim=-1)) / float(np.log(dist.shape[-1]))
 
 
-def _apply_kc(label, conf, kc, t, ignore_label):
+def apply_kc(label, conf, kc, t, ignore_label):
+    """Labels whose confidence is below their class's threshold kc [T] (or
+    a scalar) become `ignore_label`; kc=None leaves them all."""
     if kc is None:
         return label, conf
     kc_t = torch.broadcast_to(
@@ -119,36 +121,57 @@ def fused_pseudo_pass_plain(
     if num_target is not None and num_target != t:
         raise ValueError(f"conversion target dim {t} != num_target {num_target}")
 
+    if mode not in ("soft", "hard"):
+        raise ValueError(f"unknown fusion mode '{mode}'")
+    acc = None
+    for logits, mat in zip(logits_list, conversions):
+        q = fusion_term(logits, mat, mode)
+        acc = q if acc is None else acc + q
+    label, conf = fusion_epilogue(acc, n_models, mode, min_agree,
+                                  ignore_label, conf_mode)
+    return apply_kc(label, conf, kc, t, ignore_label)
+
+
+def fusion_term(logits: torch.Tensor, conversion, mode: str) -> torch.Tensor:
+    """One model's term of the fusion sum, f32: its converted probabilities
+    [..., T+1] (soft) or the one-hot vote of their argmax [..., T] (hard;
+    the ignore column votes for nothing), from NHWC logits [..., C]."""
+    t = int(np.asarray(conversion).shape[1]) - 1
+    q = convert_probs(torch.softmax(logits.to(torch.float32), -1),
+                      conversion)
     if mode == "soft":
-        acc = None
-        for logits, mat in zip(logits_list, conversions):
-            q = convert_probs(torch.softmax(logits.to(torch.float32), -1), mat)
-            acc = q if acc is None else acc + q
-        fused = acc / n_models
+        return q
+    lab_m = torch.argmax(q, dim=-1)  # may be t, the ignore column
+    return (lab_m[..., None] == torch.arange(t, device=q.device)).to(
+        torch.float32)
+
+
+def fusion_epilogue(total: torch.Tensor, n_models: int, mode: str,
+                    min_agree: Optional[int] = None,
+                    ignore_label: int = IGNORE_LABEL,
+                    conf_mode: str = "prob"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(label int32, conf f32) from the sum over `n_models` models of
+    their `fusion_term`s, before any kc threshold (the JAX package's
+    `_soft_epilogue` / `_hard_epilogue`)."""
+    if mode == "soft":
+        t = total.shape[-1] - 1
+        fused = total / n_models
         label = torch.argmax(fused[..., :t], dim=-1).to(torch.int32)
         conf = (entropy_confidence(fused) if conf_mode == "entropy"
                 else fused[..., :t].amax(dim=-1))
-    elif mode == "hard":
-        votes = None
-        for logits, mat in zip(logits_list, conversions):
-            q = convert_probs(torch.softmax(logits.to(torch.float32), -1), mat)
-            lab_m = torch.argmax(q, dim=-1)  # may be t, the ignore column
-            onehot = (lab_m[..., None] == torch.arange(
-                t, device=q.device)).to(torch.float32)
-            votes = onehot if votes is None else votes + onehot
-        label = torch.argmax(votes, dim=-1).to(torch.int32)
-        top = votes.amax(dim=-1)
-        need = min_agree if min_agree is not None else (n_models // 2 + 1)
-        if conf_mode == "entropy":
-            ig = n_models - votes.sum(dim=-1, keepdim=True)
-            conf = entropy_confidence(torch.cat([votes, ig], -1) / n_models)
-        else:
-            conf = top / n_models
-        label = torch.where(top >= need, label,
-                            torch.full_like(label, ignore_label))
+        return label, conf
+    label = torch.argmax(total, dim=-1).to(torch.int32)
+    top = total.amax(dim=-1)
+    need = min_agree if min_agree is not None else (n_models // 2 + 1)
+    if conf_mode == "entropy":
+        ig = n_models - total.sum(dim=-1, keepdim=True)
+        conf = entropy_confidence(torch.cat([total, ig], -1) / n_models)
     else:
-        raise ValueError(f"unknown fusion mode '{mode}'")
-    return _apply_kc(label, conf, kc, t, ignore_label)
+        conf = top / n_models
+    label = torch.where(top >= need, label,
+                        torch.full_like(label, ignore_label))
+    return label, conf
 
 
 def fused_pseudo_pass_pm(

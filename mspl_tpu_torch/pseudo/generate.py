@@ -18,8 +18,17 @@ pay.  PyTorch runs eagerly, so the JAX package's compiled-program reuse has
 no counterpart: `set_variables` loads new weights into a source's module in
 place and the next sweep uses them.
 
-Not in this slice: the device mesh (data and model-axis parallelism);
-passing one raises.
+With a mesh (`parallel/mesh.py`) every rank of the job sweeps the same
+loader.  On the data axis each rank runs the whole per-batch pass above on
+its contiguous slice of every batch, as the JAX package's `shard_map`
+does.  On the model axis (M > 1) model slice i runs `sources[i::M]` on its
+data slice, each source's softmax, conversion and soft sum or hard vote
+in f32 plain torch, as the JAX package computes them there outside any
+kernel; the sums are added over the model axis, then the shared soft or
+hard epilogue and kc run on every slice.  The data axis's rows are then
+gathered (`gather_rows`), and ranks outside the mesh receive them by
+broadcast, so every rank returns every image's label and confidence in
+loader order.
 """
 
 from __future__ import annotations
@@ -35,13 +44,13 @@ from mspl_tpu_torch.data.label_space import label_conversion_matrix
 from mspl_tpu_torch.data.transforms import normalize as default_normalize
 from mspl_tpu_torch.ops.pseudo import fused_pseudo_pass_plain as \
     fused_pseudo_pass  # the reference pass, under the JAX package's name
-from mspl_tpu_torch.ops.pseudo import fused_pseudo_pass_pm
+from mspl_tpu_torch.ops.pseudo import (apply_kc, fused_pseudo_pass_pm,
+                                       fusion_epilogue, fusion_term)
 from mspl_tpu_torch.ops.pseudo_cm import fused_pseudo_cm
+from mspl_tpu_torch.parallel.mesh import (Mesh, gather_rows, psum,
+                                          replicate, shard_batch)
 from mspl_tpu_torch.utils.flax_bridge import load_flax_variables
 from mspl_tpu_torch.utils.registry import IGNORE_LABEL
-
-_LATER = ("belongs to a later slice of the PyTorch port (this slice runs "
-          "one device without a mesh)")
 
 
 @dataclasses.dataclass
@@ -109,13 +118,15 @@ def make_source(name: str, model: nn.Module, variables, src_dataset: str,
 
 
 class PseudoLabelGenerator:
-    """The pseudo-label engine over a fixed set of sources on one device.
+    """The pseudo-label engine over a fixed set of sources on one device,
+    or with `mesh` on each rank of a mesh (module docstring).
 
     Each call sweeps a loader of `{"image", "valid", "index"}` uint8 NHWC
     batches: normalize on the device, one cast to the sources' shared
     compute dtype, N forwards, the fused pass.  Labels leave the device as
     uint8 (the host re-widens them to int32).  One batch of host-to-device
-    lookahead overlaps the next batch's upload with this batch's compute."""
+    lookahead overlaps the next batch's upload with this batch's compute.
+    Under a mesh a rank moves to its device only the sources it runs."""
 
     def __init__(
         self,
@@ -130,8 +141,9 @@ class PseudoLabelGenerator:
         min_agree: Optional[int] = None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(f"a device mesh {_LATER}")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise ValueError(f"mesh must be a parallel.Mesh, got "
+                             f"{type(mesh).__name__}")
         if mode not in ("soft", "hard"):
             raise ValueError(f"unknown fusion mode '{mode}'")
         if conf_mode not in ("prob", "entropy"):
@@ -143,8 +155,16 @@ class PseudoLabelGenerator:
             raise ValueError("all sources must agree on channel_major")
         self.device = torch.device(device)
         self.sources = list(sources)
-        for s in self.sources:
-            s.model.to(self.device).eval()
+        self.mesh = mesh
+        # the sources this rank runs: all of them, those of its model
+        # slice, or none outside the mesh
+        self.mine = list(range(len(self.sources)))
+        if mesh is not None:
+            self.mine = ([] if mesh.coords is None else
+                         self.mine[mesh.index("model")::mesh.shape["model"]])
+        self.model_axis = mesh is not None and mesh.shape["model"] > 1
+        for i in self.mine:
+            self.sources[i].model.to(self.device).eval()
         self.mode, self.conf_mode, self.min_agree = mode, conf_mode, min_agree
         # channel-major sources take the channel-major kernel whatever the
         # flag says, as in the JAX package
@@ -193,8 +213,60 @@ class PseudoLabelGenerator:
                 conf_mode=self.conf_mode)
         return (lab.to(torch.uint8) if self.fetch_u8 else lab), conf
 
-    def _put(self, batch) -> torch.Tensor:
-        host = torch.from_numpy(np.ascontiguousarray(batch["image"]))
+    @torch.inference_mode()
+    def model_axis_pass(self, imgs_u8: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`batch_pass` on a model slice of the mesh: this slice's sources'
+        fusion terms (f32, plain torch), their sum over the model axis, the
+        epilogue and kc."""
+        imgs = self.normalize_fn(imgs_u8)
+        if self.common_dtype is not None:
+            imgs = imgs.to(self.common_dtype)
+        b, h, w = imgs_u8.shape[:3]
+        t = self.num_target
+        width = t + 1 if self.mode == "soft" else t
+        acc = torch.zeros((b, h, w, width), dtype=torch.float32,
+                          device=self.device)
+        for i in self.mine:
+            s = self.sources[i]
+            lg = s(imgs)
+            if s.channel_major:
+                lg = lg.permute(0, 2, 3, 1)
+            acc = acc + fusion_term(lg, self.conversions[i], self.mode)
+        psum(acc, self.mesh, "model")
+        lab, conf = fusion_epilogue(acc, len(self.sources), self.mode,
+                                    self.min_agree, self.ignore_label,
+                                    self.conf_mode)
+        lab, conf = apply_kc(lab, conf, self.kc, t, self.ignore_label)
+        return (lab.to(torch.uint8) if self.fetch_u8 else lab), conf
+
+    def _mesh_pass(self, batch, imgs):
+        """This rank's share of a global batch on the mesh, then every
+        row: (label, conf) of the whole batch on this rank's device."""
+        mesh = self.mesh
+        if mesh.coords is not None:
+            run = self.model_axis_pass if self.model_axis else self.batch_pass
+            lab, conf = run(imgs)
+            lab = gather_rows(lab, mesh, "data")
+            conf = gather_rows(conf, mesh, "data")
+        else:
+            shape = np.asarray(batch["image"]).shape[:3]
+            lab = torch.zeros(shape, device=self.device, dtype=(
+                torch.uint8 if self.fetch_u8 else torch.int32))
+            conf = torch.zeros(shape, device=self.device)
+        if mesh.has_outside:
+            replicate({"label": lab, "conf": conf}, mesh)
+        return lab, conf
+
+    def _put(self, batch) -> Optional[torch.Tensor]:
+        """The batch's images on the device: under a mesh this rank's data
+        slice of them, None outside the mesh."""
+        images = batch["image"]
+        if self.mesh is not None:
+            if self.mesh.coords is None:
+                return None
+            images = shard_batch({"image": images}, self.mesh)["image"]
+        host = torch.from_numpy(np.ascontiguousarray(images))
         if self.device.type == "cuda":
             return host.pin_memory().to(self.device, non_blocking=True)
         return host.to(self.device)
@@ -221,7 +293,8 @@ class PseudoLabelGenerator:
         device; only the indices come back as numpy."""
         labels, confs, indices = [], [], []
         for batch, imgs in self._prefetched(loader):
-            lab, conf = self.batch_pass(imgs)
+            lab, conf = (self.batch_pass(imgs) if self.mesh is None
+                         else self._mesh_pass(batch, imgs))
             valid = np.asarray(batch["valid"])
             if return_device:
                 # the loader pads only the tail batch, as a suffix, so the
@@ -259,7 +332,8 @@ def generate_pseudo_labels(
     return_device: bool = False,
     device="cuda",
 ):
-    """Sweep a target-image loader once; see `PseudoLabelGenerator`."""
+    """Sweep a target-image loader once; see `PseudoLabelGenerator` (with
+    `mesh`, every rank of the job calls this with the same loader)."""
     gen = PseudoLabelGenerator(
         sources, mode=mode, kc=kc, normalize_fn=normalize_fn,
         ignore_label=ignore_label, use_pallas=use_pallas, mesh=mesh,

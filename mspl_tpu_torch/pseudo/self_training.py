@@ -21,8 +21,16 @@ its f32 logits beside the sources' bf16 ones.
 
 With `ckpt_dir`, round r's fine-tune checkpoints its train state into
 `<ckpt_dir>/round{r}` (`train_segmentation`'s files, in the JAX package's
-format).  The device mesh (ROADMAP A.6) belongs to a later slice of the
-port and raises.
+format).
+
+With a mesh (`parallel/mesh.py`), generation runs on the (model, data)
+mesh as given, and the fine-tune on the same ranks flattened into a pure
+data-parallel mesh (`make_mesh_for_batch(batch_size)`), as the JAX package
+re-flattens its devices.  Every rank holds the whole round's labels, so
+the CBST histograms and kc are the same on each; ranks outside the train
+mesh skip the steps and receive the weights, so every rank ends each round
+with the same model.  Only the mesh's first rank writes the label PNGs,
+the train list and the round checkpoints, and prints.
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ import torch.nn as nn
 from mspl_tpu_torch.data.loader import DataLoader
 from mspl_tpu_torch.engine.train import (TrainLoopConfig, evaluate,
                                          make_eval_step, train_segmentation)
+from mspl_tpu_torch.parallel.mesh import (barrier, make_mesh_for_batch,
+                                          share_with_outside)
 from mspl_tpu_torch.pseudo.cbst import apply_kc_device, sweep_kc
 from mspl_tpu_torch.pseudo.generate import (PseudoLabelGenerator, SourceModel,
                                             load_variables, make_source)
@@ -112,12 +122,13 @@ def self_training(
     model/variables: the target model to adapt, fine-tuned in place
     (`variables`, a flax tree of numpy arrays or a state dict, are loaded
     first; None keeps its weights).  sources: trained source models
-    (`make_source`).  target_ds: the unlabeled target dataset.  Returns
-    {'model', 'variables' (its state dict), 'history', 'best_miou'}."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh belongs to a later slice of the PyTorch port "
-            "(ROADMAP A.6)")
+    (`make_source`).  target_ds: the unlabeled target dataset.  With
+    `mesh`, every rank of the job runs this call with the same arguments
+    (module docstring).  Returns {'model', 'variables' (its state dict),
+    'history', 'best_miou'}."""
+    train_mesh = (None if mesh is None else
+                  make_mesh_for_batch(cfg.batch_size, ranks=mesh.ranks))
+    first = mesh is None or mesh.is_first
     if variables is not None:
         load_variables(model, variables)
     model.to(device)
@@ -143,7 +154,8 @@ def self_training(
     def _make_generator(ensemble):
         return PseudoLabelGenerator(
             ensemble, mode=cfg.fusion, use_pallas=cfg.use_pallas,
-            conf_mode=cfg.conf_mode, min_agree=cfg.min_agree, device=device)
+            conf_mode=cfg.conf_mode, min_agree=cfg.min_agree, mesh=mesh,
+            device=device)
 
     for r in range(cfg.rounds):
         p = min(cfg.p_init + r * cfg.p_step, 1.0)
@@ -173,7 +185,7 @@ def self_training(
             labels_thr = np.where(keep, labels, IGNORE_LABEL).astype(np.int32)
         frac_kept = float((labels_thr != IGNORE_LABEL).mean())
 
-        if cfg.out_dir:
+        if cfg.out_dir and first:
             _dump_round(cfg.out_dir, r, labels_thr, indices, target_ds)
 
         pseudo_ds = PseudoLabeledDataset(target_ds, labels_thr, indices)
@@ -188,23 +200,27 @@ def self_training(
             ckpt_dir=(os.path.join(cfg.ckpt_dir, f"round{r}")
                       if cfg.ckpt_dir else None))
         res = train_segmentation(model, None, train_loader, val_loader,
-                                 num_classes, tcfg, device=device)
+                                 num_classes, tcfg, mesh=train_mesh,
+                                 device=device)
         miou = res["best_miou"]
         if val_loader is not None and miou < 0:
-            _, miou = evaluate(make_eval_step(model, num_classes,
-                                              device=device),
-                               val_loader, num_classes)
+            if train_mesh is None or train_mesh.coords is not None:
+                _, miou = evaluate(make_eval_step(model, num_classes,
+                                                  device=device),
+                                   val_loader, num_classes, train_mesh)
+            miou = share_with_outside(model, train_mesh, miou)
         best_miou = max(best_miou, miou)
         history.append({
             "round": r, "p": p, "kc": kc.tolist(),
             "frac_kept": frac_kept, "miou": miou,
             "n_sources": len(gen.sources),
         })
-        if cfg.verbose:
+        if cfg.verbose and first:
             print(f"round {r}: p={p:.2f} kept={frac_kept:.2%} "
                   f"sources={len(gen.sources)} val mIoU={miou:.4f}",
                   flush=True)
-
+    if mesh is not None:
+        barrier()  # the first rank's files are written
     return {"model": model, "variables": model.state_dict(),
             "history": history, "best_miou": best_miou}
 

@@ -335,13 +335,21 @@ def test_pyr_branches_function_grads_only_what_is_asked(branch_case,
 JAX_ONLY = {"donate", "packer"}
 
 
+# the port's own keyword-only parameters, last: the device (the card by
+# default) and, for the train step, the mesh (none by default; the JAX
+# step is sharded by its inputs instead)
+PORT_ONLY = {"make_train_step": ["device", "mesh"],
+             "make_eval_step": ["device"]}
+
+
 @pytest.mark.parametrize("name", ["make_train_step", "make_eval_step"])
 def test_step_signatures_match_the_reference(name):
     """The port's train and eval step makers take the reference's
     parameters in the reference's order with its defaults (augment on,
     crop_hw and scale_range before class_weights, mean/std, remat and
-    bn_groups), less the JAX-only two, and then the port's own keyword-only `device`, which
-    defaults to the card."""
+    bn_groups), less the JAX-only two, and then the port's own
+    keyword-only `device`, which defaults to the card, and the train
+    step's `mesh`, None by default."""
     import inspect
 
     from mspl_tpu.engine import train as ref
@@ -351,11 +359,16 @@ def test_step_signatures_match_the_reference(name):
             inspect.signature(getattr(ref, name)).parameters.values()
             if p.name not in JAX_ONLY]
     params = inspect.signature(getattr(port, name)).parameters
-    got = [(p.name, p.default) for p in params.values() if p.name != "device"]
+    tail = PORT_ONLY[name]
+    got = [(p.name, p.default) for p in params.values()
+           if p.name not in tail]
     assert got == want
-    assert list(params)[-1] == "device"
-    assert params["device"].kind is inspect.Parameter.KEYWORD_ONLY
+    assert list(params)[-len(tail):] == tail
+    assert all(params[t].kind is inspect.Parameter.KEYWORD_ONLY
+               for t in tail)
     assert params["device"].default == "cuda"
+    if "mesh" in tail:
+        assert params["mesh"].default is None
 
 
 class _Recorder(torch.nn.Module):
