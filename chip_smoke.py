@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's pseudo-label main path on one CUDA card, then
 its train step, its self-training rounds, the DeepLab model, its command
-line, its encoder pretraining and its mesh.
+line, its encoder pretraining, its mesh, and its stacked ensembles,
+decoder-resolution fusion and bf16 training.
 
     python3 chip_smoke.py [--batches N] [--profile DIR]
 
@@ -114,14 +115,42 @@ Phases (each prints a line; any failure raises and exits non-zero):
      held between controls and against the same steps in f64; one
      self-training round at data 2 gated as phase 7 gates its rounds; and
      the CLI's `pseudo --model-parallel 2` through `torch.distributed.run`
-     against a single-process `pseudo`.
+     against a single-process `pseudo`; and 3 steps of `train_segmentation`
+     with no mesh given, which with `torch.distributed` up takes the job's
+     data mesh (`make_mesh_for_batch`), against the explicit mesh's run.
+     11b's "one process" references run on a mesh of rank 0 alone, which
+     every rank enters (a call without a mesh would take the job's).
+ 12. stacking, decoder resolution, bf16 training (`phase_stack`): (a)
+     phase 4's three sources padded to 19 classes and stacked into one
+     `stack=3` bf16 model (`layers/stacking.py`), on the default and the
+     `use_pallas` route, 8 timed batches of 128 at 256x480 each beside
+     phase 4's sequential loop on the same batches (StepTimer, img/s, peak
+     memory, launches): each model's block of the stacked logits against
+     its own forward within twice a control (its bf16 forward against its
+     f32 forward), the pad classes' softmax mass exactly 0, the labels
+     through the fused pass on each model's contiguous block against phase
+     4's generator (>= 0.995), and the branch stack, the logits resize,
+     the EESP stack and the fused pass at the stacked shapes against
+     their plain versions, timed; (b) the sources with `final_resize=False`
+     through `fused_pseudo_soft_decoder_res`: img/s beside the exact path,
+     label agreement with it, and the card against the CPU in f32 on a
+     batch of 2; (e) the model card of the Cityscapes source (GFLOPs by
+     `estimate_flops`), a `trace` of one stacked batch; (d)
+     `random_scale_crop_flip` on the card against the CPU at the same
+     draws; (c) the CLI's `train --bf16` (phase 9's images) and `pretrain
+     --bf16` (phase 10's), one epoch each, their checkpoints read back, and
+     one bf16 train step against the fp32 step from the same weights.
 The last line is {"ok": true, "device": {...}}; the line before it names
 the card, and the one before that lists every kernel as JSON (the branch
 kernel's row also carries its train launches and its remat step's, the
 EESP kernels' rows their launches in a classifier forward of their route,
 and every row its launches in phase 7's two rounds, in phase 8's three,
-over phase 9's CLI commands and, as `mesh_launches`, in each rank of
-phase 11a's sweep ("nccl") and of phase 11b's mesh runs ("gloo")).
+over phase 9's CLI commands, as `mesh_launches` in each rank of phase
+11a's sweep ("nccl") and of phase 11b's mesh runs ("gloo"), as
+`stack_launches` in phase 12's stacked sweeps by route and as
+`decoder_res_launches` in its decoder-resolution sweep; the rows of the
+kernels that the stacked sweep runs carry, as `stack`, their check and
+times at the stacked shapes).
 """
 
 from __future__ import annotations
@@ -3810,12 +3839,17 @@ def _gen_case(rank, mode, m, d, pool, sources):
 
 def _mesh_train(rank: int):
     """MESH_TRAIN_STEPS augmented steps of `train_segmentation` at data 2
-    (phase 6's model, global batch 8 at 256x480 fp32), and on rank 0 the
-    same steps in one process; both with deterministic cuDNN."""
+    (phase 6's model, global batch 8 at 256x480 fp32), the same with no
+    mesh given (the job's data mesh, `make_mesh_for_batch`), and on rank 0
+    the same steps as one process; all with deterministic cuDNN.  "One
+    process" is a mesh of rank 0 alone (`solo`), which every rank enters:
+    with `torch.distributed` up, a call without a mesh takes the job's."""
     from mspl_tpu_torch.data.datasets import SyntheticSegmentation
     from mspl_tpu_torch.engine.train import (TrainLoopConfig,
                                              train_segmentation)
     from mspl_tpu_torch.parallel.mesh import make_mesh
+
+    solo = make_mesh(data=1, ranks=[0])
 
     train_set = CachedSet(SyntheticSegmentation(
         TRAIN_CLASSES, (HW[1], HW[0]), MESH_TRAIN_STEPS * TRAIN_BATCH,
@@ -3856,12 +3890,19 @@ def _mesh_train(rank: int):
     res, secs, params = run(make_mesh(data=GLOO_WORLD))
     out = dict(secs=secs, launches=_counts(), steps=res["state"].step,
                digest=[float(p.double().sum()) for p in params.values()])
+    res_n, _, params_n = run(None)
+    out.update(no_mesh_steps=res_n["state"].step,
+               no_mesh_gap=update_gap(params_n, params, before),
+               no_mesh_equal=all(torch.equal(params_n[k], params[k])
+                                 for k in params),
+               no_mesh_digest=[float(p.double().sum())
+                               for p in params_n.values()])
+    _, single_secs, want = run(solo)
+    ctrl = {"cuDNN's default algorithms": run(solo, deterministic=False),
+            f"per-replica BatchNorm (bn_groups {GLOO_WORLD})":
+                run(solo, bn_groups=GLOO_WORLD)}
+    exact = run(solo, f64=True)[2]
     if rank == 0:
-        _, single_secs, want = run(None)
-        ctrl = {"cuDNN's default algorithms": run(None, deterministic=False),
-                f"per-replica BatchNorm (bn_groups {GLOO_WORLD})":
-                    run(None, bn_groups=GLOO_WORLD)}
-        exact = run(None, f64=True)[2]
         out.update(gap=update_gap(params, want, before),
                    single_secs=single_secs,
                    controls={k: update_gap(v[2], want, before)
@@ -3873,10 +3914,12 @@ def _mesh_train(rank: int):
 
 def _mesh_round(rank: int, sources):
     """One self-training round at (model 1, data 2), phase 7's setting,
-    and on rank 0 the same round in one process, both with deterministic
+    and the same round on rank 0 alone (a mesh of rank 0, which every rank
+    enters, as `_mesh_train`'s "one process"), both with deterministic
     cuDNN."""
     from mspl_tpu_torch.parallel.mesh import make_mesh
 
+    solo = make_mesh(data=1, ranks=[0])
     target0, target_set, val_set = round_sets()
     sets = (sources, target0, target_set, val_set)
     rec = run_rounds(*sets, deterministic=True, rounds=1,
@@ -3884,8 +3927,8 @@ def _mesh_round(rank: int, sources):
     check_round_run(rec, kernels=True)
     out = dict(secs=rec["secs"], launches=rec["launches"],
                kc=rec["history"][0]["kc"])
+    ref = run_rounds(*sets, deterministic=True, rounds=1, mesh=solo)
     if rank == 0:
-        ref = run_rounds(*sets, deterministic=True, rounds=1)
         before = {k: v.detach().cuda()
                   for k, v in target0.named_parameters()}
         out.update(agree=_agreement(rec, ref, 0), kc_gap=_kc_gap(rec, ref, 0),
@@ -3983,6 +4026,13 @@ def mesh_gloo(smi: str):
     for i, r in enumerate(ranks):
         if r["train"]["launches"]["pyr_branches"] != 4 * MESH_TRAIN_STEPS:
             faults.append(f"train rank {i} launches {r['train']['launches']}")
+    if tr["no_mesh_steps"] != MESH_TRAIN_STEPS \
+            or tr["no_mesh_gap"] > MESH_TRAIN_TOL \
+            or any(r["train"]["no_mesh_digest"] != tr["no_mesh_digest"]
+                   for r in ranks):
+        faults.append(f"train without a mesh: {tr['no_mesh_steps']} steps, "
+                      f"gap {tr['no_mesh_gap']:.3g} to the data mesh's run, "
+                      "or the ranks differ")
     print(f"phase 11b gloo train: {MESH_TRAIN_STEPS} augmented steps of "
           f"train_segmentation at data {GLOO_WORLD} (global batch "
           f"{TRAIN_BATCH} at {HW[0]}x{HW[1]} fp32, synced BatchNorm, "
@@ -3999,6 +4049,12 @@ def mesh_gloo(smi: str):
           f"launches per rank "
           f"{[r['train']['launches']['pyr_branches'] for r in ranks]}",
           flush=True)
+    print(f"phase 11b gloo train without a mesh (torch.distributed up: the "
+          f"job's data mesh, make_mesh_for_batch({TRAIN_BATCH})): against "
+          f"the explicit data-{GLOO_WORLD} mesh "
+          f"{'bit-equal' if tr['no_mesh_equal'] else 'not bit-equal'}, "
+          f"|a - b| / |b - start| {tr['no_mesh_gap']:.3g} (limit "
+          f"{MESH_TRAIN_TOL}); the ranks equal", flush=True)
     rd = r0["round"]
     if rd["agree"] < ROUND_AGREE[0] or rd["kc_gap"] > KC_BIN \
             or rd["gap"] > ROUND_PARAM_TOL \
@@ -4110,6 +4166,583 @@ def phase_mesh(smi: str, ref):
             for k in ALL_COUNTERS}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: stacking, decoder-resolution fusion, bf16 training, the
+# per-image crop and the profiling utilities
+# ---------------------------------------------------------------------------
+
+STACK_PAD = max(c for _, c in SOURCES)  # every head padded to 19 classes
+# the stacked routes' launches a batch: the branch stack in all four
+# decoder blocks (the fused tail runs unstacked only), one logits resize
+# and one fused pass; `use_pallas` adds the EESP stack at each of the 10
+# stride-1 units
+STACK_ROUTES = (("default", {}, {}),
+                ("use_pallas", dict(use_pallas=True), {"eesp_branches": 10}))
+STACK_PER_BATCH = {"pyr_branches": 4, "resize_x2_cm": 1, "fused_pseudo_cm": 1}
+# the decoder-resolution sources' launches a batch: each source's three
+# branch stacks and its fused tail; no logits resize, and the fusion at the
+# decoder's resolution is plain torch
+DEC_PER_BATCH = {"pyr_branches": 9, "pyr_pool_fused_eval": 3}
+STACK_BATCHES = 8            # timed batches of 128 of each sweep
+STACK_AGREE = 0.995          # the stacked routes' labels against phase 4's
+# a stacked model's logits against each model's own forward: within
+# STACK_CONTROL_X times the control, the gap between that model's bf16
+# forward and its f32 forward on the same images (both are roundings of
+# one computation; the stacked one sums in other orders)
+STACK_CONTROL_X = 2.0
+DEC_AGREE_FLOOR = 0.95       # decoder-res labels against the exact path
+DEC_CPU_BATCH = 2            # the decoder-res fusion's card-vs-CPU gate, f32
+DEC_CPU_AGREE, DEC_CPU_CONF = 0.999, 1e-3
+CROP_DRAWS = 4               # per-image crops, card against CPU
+
+
+def stacked_model(sources, **flags):
+    """The sources as one stacked bf16 model on the card: each flax tree
+    padded to a 19-class template (zero weights, pad classes at bias
+    -1e4), the trees stacked m-major."""
+    from mspl_tpu_torch.layers.stacking import (pad_variables_to_template,
+                                                stack_variables)
+    from mspl_tpu_torch.utils.flax_bridge import (flax_variables,
+                                                  load_flax_variables)
+
+    template = flax_variables(ESPNetv2Segmentation(STACK_PAD, s=2.0))
+    trees = [pad_variables_to_template(flax_variables(s.model), template)
+             for s in sources]
+    model = ESPNetv2Segmentation(STACK_PAD, s=2.0,
+                                 compute_dtype=torch.bfloat16,
+                                 stack=len(sources), **flags)
+    load_flax_variables(model, stack_variables(trees))
+    return model.cuda().eval()
+
+
+def padded_tables():
+    """Each source's label-space table with zero rows for its pad
+    classes."""
+    out = []
+    for name, c in SOURCES:
+        t = np.zeros((STACK_PAD, 4), np.float32)
+        t[:c] = label_conversion_matrix(name)
+        out.append(t)
+    return out
+
+
+def stacked_logits(model, normalize_fn, imgs_u8, copy_ms=None):
+    """The stacked forward's logits and each model's [B, 19, H, W] block
+    copied out contiguous (the fused pass reads a model's channels as one
+    run per image); `copy_ms` collects the copies' CUDA-event time."""
+    x = normalize_fn(imgs_u8).to(torch.bfloat16)
+    logits = model(x)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    blocks = [logits[:, i * STACK_PAD:(i + 1) * STACK_PAD].contiguous()
+              for i in range(len(SOURCES))]
+    end.record()
+    if copy_ms is not None:
+        end.synchronize()
+        copy_ms.append(start.elapsed_time(end))
+    return logits, blocks
+
+
+@contextlib.contextmanager
+def recorded_calls(calls):
+    """Record the arguments of every call of the branch stack, the logits
+    resize and the EESP stack that the models make in the block (the
+    calls still run)."""
+    import mspl_tpu_torch.layers.eesp as le
+    import mspl_tpu_torch.layers.pyramid_pool as pp
+    import mspl_tpu_torch.models.espnetv2 as me
+
+    def rec(name, fn):
+        def wrapper(*args, **kwargs):
+            calls.setdefault(name, []).append((args, kwargs))
+            return fn(*args, **kwargs)
+        return wrapper
+
+    with swapped([(pp, "pyr_branches", rec("pyr_branches", pp.pyr_branches)),
+                  (me, "resize_x2_cm", rec("resize_x2_cm", me.resize_x2_cm)),
+                  (le, "eesp_branches",
+                   rec("eesp_branches", le.eesp_branches))]):
+        yield
+
+
+STACKED_KERNELS = (
+    ("pyr_branches", pyrpool.pyr_branches, pyrpool.pyr_branches_plain,
+     branch_work),
+    ("resize_x2_cm", resize_x2.resize_x2_cm, resize_x2.resize_x2_cm_plain,
+     lambda calls: resize_work([(x, size, True) for x, size in calls])),
+    ("eesp_branches", eesp_branches.eesp_branches,
+     eesp_branches.eesp_branches_plain, eesp_work),
+)
+
+
+def check_stacked_kernels(calls, blocks, tables, kc):
+    """Each kernel that the stacked forward called, on the very arguments
+    it was called with, against its plain version (bf16: within one bf16
+    rounding), and timed beside it with its bound; the fused pass on the
+    three contiguous blocks (confidences within 1e-5, labels equal where
+    decided).  Returns {name: row}."""
+    out = {}
+    for name, kern, plain, work in STACKED_KERNELS:
+        if name not in calls:
+            continue
+        err = 0.0
+        for a, k in calls[name]:
+            err = max(err, check_close(f"phase 12 {name} stacked",
+                                       kern(*a, **k), plain(*a, **k),
+                                       atol=1e-3, rtol=BF16_ULP))
+
+        def run(f, cs=calls[name]):
+            return lambda: [f(*a, **k) for a, k in cs]
+        ms = min(time_ms(run(kern)), time_ms(run(kern)))
+        b_ms, b_by, _ = bound(*work([a for a, _ in calls[name]]))
+        shapes = sorted({tuple(a[0].shape) for a, _ in calls[name]})
+        out[name] = dict(calls=len(calls[name]), shapes=shapes,
+                         max_abs_err=err, ms=ms, plain_ms=time_ms(run(plain)),
+                         bound_ms=b_ms, bound_by=b_by)
+        if name == "pyr_branches":  # one call a plane
+            out[name]["ms_by_plane"] = {
+                "x".join(map(str, a[0].shape[2:])): min(
+                    time_ms(run(kern, [(a, k)])) for _ in range(2))
+                for a, k in calls[name]}
+    got_l, got_c = pseudo_cm.fused_pseudo_cm(blocks, tables, kc)
+    want_l, want_c = pseudo_cm.fused_pseudo_cm_plain(blocks, tables, kc)
+    err = check_close("phase 12 fused_pseudo_cm stacked", got_c, want_c,
+                      atol=1e-5)
+    decided = _pseudo_decided(blocks, tables, "soft", kc, want_c, want_l)
+    bad = int(((got_l != want_l) & decided).sum())
+    if bad:
+        raise AssertionError(f"phase 12 fused_pseudo_cm stacked: {bad} "
+                             "decided labels differ")
+    b_ms, b_by, _ = bound(*pseudo_work([(blocks,)]))
+    out["fused_pseudo_cm"] = dict(
+        calls=1, shapes=[tuple(blocks[0].shape)] * len(blocks),
+        max_abs_err=err, decided=decided.float().mean().item(),
+        ms=min(time_ms(lambda: pseudo_cm.fused_pseudo_cm(blocks, tables,
+                                                         kc))
+               for _ in range(2)),
+        plain_ms=time_ms(lambda: pseudo_cm.fused_pseudo_cm_plain(
+            blocks, tables, kc)),
+        bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
+def _f32_twin(model):
+    twin = copy.deepcopy(model).float()
+    for mod in twin.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = torch.float32
+    return twin
+
+
+def stacked_logit_gaps(logits, sources, x):
+    """Per source: the largest |gap| between its block of the stacked
+    logits (true classes) and its own bf16 forward, the control (its bf16
+    forward against its f32 forward), and the pad classes' largest softmax
+    mass."""
+    rows = []
+    for i, ((name, c), src) in enumerate(zip(SOURCES, sources)):
+        block = logits[:, i * STACK_PAD:(i + 1) * STACK_PAD]
+        own = src.model(x)
+        f32 = _f32_twin(src.model)(x.float())
+        gap = (block[:, :c].float() - own.float()).abs().max().item()
+        ctrl = (own.float() - f32).abs().max().item()
+        pad = (torch.softmax(block.float(), dim=1)[:, c:].max().item()
+               if c < STACK_PAD else 0.0)
+        rows.append((name, gap, ctrl, pad))
+        del own, f32
+    return rows
+
+
+def timed_batches(fn, batches, n: int):
+    """`fn` over n batches (alternating `batches`) after a warm one, each
+    timed by a StepTimer with `device_sync`, every launch count set to 0
+    just before and read just after.  Returns (timer, counts, last
+    output)."""
+    from mspl_tpu_torch.utils.profiling import StepTimer, device_sync
+
+    out = fn(batches[0])
+    device_sync(out)
+    _zero_counts()
+    timer = StepTimer()
+    for i in range(n):
+        with timer.step():
+            out = fn(batches[i % len(batches)])
+            device_sync(out)
+    return timer, _counts(), out
+
+
+def _expect(per_batch, n, smi_tag):
+    def check(counts):
+        want = {k: per_batch.get(k, 0) * n for k in ALL_COUNTERS}
+        if counts != want:
+            raise AssertionError(f"phase 12 {smi_tag}: launches {counts}, "
+                                 f"expected {want}")
+    return check
+
+
+def stack_sweep(smi: str, gen, sources, batches):
+    """(a) The three sources stacked into one model, on the default and the
+    `use_pallas` route, against phase 4's generator on the same batches.
+    Returns (launches by route, stacked kernel rows, the default route's
+    StepTimer summary, the model for the trace)."""
+    tables = padded_tables()
+    kc = gen.kc
+    n_img = BATCH * STACK_BATCHES
+    with torch.inference_mode():
+        lab_seq = gen.batch_pass(batches[0])[0].int()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seq_timer, seq_counts, _ = timed_batches(gen.batch_pass, batches,
+                                             STACK_BATCHES)
+    seq_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _expect(PER_BATCH, STACK_BATCHES, "sequential loop")(seq_counts)
+    seq = seq_timer.summary()
+    launches, kernel_rows, summary, keep = {}, {}, None, None
+    lab_default = None
+    for route, flags, extra in STACK_ROUTES:
+        model = stacked_model(sources, **flags)
+        calls, copy_ms = {}, []
+        with torch.inference_mode():
+            with recorded_calls(calls):
+                logits, blocks = stacked_logits(model, gen.normalize_fn,
+                                                batches[0], copy_ms)
+            rows = check_stacked_kernels(calls, blocks, tables, kc)
+            lab, _ = pseudo_cm.fused_pseudo_cm(blocks, tables, kc)
+            gaps = (stacked_logit_gaps(logits, sources, gen.normalize_fn(
+                batches[0]).to(torch.bfloat16)) if route == "default"
+                else None)
+        del calls, logits, blocks
+        agree = (lab == lab_seq).float().mean().item()
+        agree_d = (1.0 if lab_default is None else
+                   (lab == lab_default).float().mean().item())
+        if lab_default is None:
+            lab_default = lab
+        faults = []
+        if min(agree, agree_d) < STACK_AGREE:
+            faults.append(f"label agreement {agree:.6f} with phase 4's "
+                          f"generator, {agree_d:.6f} with the default "
+                          f"stacked route (gate {STACK_AGREE})")
+        if gaps is not None:
+            for name, gap, ctrl, pad in gaps:
+                if gap > STACK_CONTROL_X * ctrl or pad != 0.0:
+                    faults.append(f"{name}: logits gap {gap:.4g} against "
+                                  f"control {ctrl:.4g}, pad mass {pad}")
+        if faults:
+            raise AssertionError(f"phase 12 stacked {route}: "
+                                 + "; ".join(faults))
+
+        def run(imgs, model=model):
+            with torch.inference_mode():
+                _, blocks = stacked_logits(model, gen.normalize_fn, imgs)
+                return pseudo_cm.fused_pseudo_cm(blocks, tables, kc)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timer, counts, _ = timed_batches(run, batches, STACK_BATCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        _expect({**STACK_PER_BATCH, **extra}, STACK_BATCHES,
+                f"stacked {route}")(counts)
+        launches[route] = counts
+        st = timer.summary()
+        if route == "default":
+            summary, keep = st, model
+            kernel_rows.update(rows)
+        else:
+            kernel_rows["eesp_branches"] = rows["eesp_branches"]
+            del model
+        print(f"phase 12 stacked {route}: 3 ESPNetv2-s2.0 sources (11, 19, 5 "
+              f"classes padded to {STACK_PAD}) as one stack=3 bf16 model, "
+              f"{STACK_BATCHES} batches of {BATCH} at {HW[0]}x{HW[1]} -> "
+              f"{n_img / st['total_s']:.2f} img/s (StepTimer: mean "
+              f"{st['mean_s'] * 1e3:.2f} ms, p50 {st['p50_s'] * 1e3:.2f}, "
+              f"p95 {st['p95_s'] * 1e3:.2f} a batch) against the sequential "
+              f"loop {n_img / seq['total_s']:.2f} img/s (mean "
+              f"{seq['mean_s'] * 1e3:.2f} ms) on {smi} | the 3 blocks' "
+              f"contiguous copies {copy_ms[0]:.3f} ms a batch | peak "
+              f"memory {peak:.3f} GiB (the sequential loop {seq_peak:.3f}) "
+              f"| label agreement {agree:.6f} with "
+              f"phase 4's generator"
+              + ("" if route == "default" else
+                 f", {agree_d:.6f} with the default stacked route")
+              + f" (gate {STACK_AGREE}) | launches {json.dumps(counts)}",
+              flush=True)
+        if gaps is not None:
+            print("phase 12 stacked logits against each model's own bf16 "
+                  f"forward (batch {BATCH}, true classes; limit "
+                  f"{STACK_CONTROL_X} x the control, the model's bf16 "
+                  "against its f32 forward): " + ", ".join(
+                      f"{name} {gap:.4g} (control {ctrl:.4g}, pad-class "
+                      f"mass {pad})" for name, gap, ctrl, pad in gaps),
+                  flush=True)
+        print(f"phase 12 stacked {route} kernels at the stacked shapes "
+              "(bf16, against the plain versions on the forward's own "
+              "arguments): " + "; ".join(
+                  f"{k} {r['calls']} calls {r['shapes']}: max |err| "
+                  f"{r['max_abs_err']:.3g}"
+                  + (f" (labels equal on the {r['decided']:.4f} decided)"
+                     if "decided" in r else "")
+                  + f", kernel {r['ms']:.3f} ms"
+                  + (" (by plane " + ", ".join(
+                      f"{p} {v:.3f}" for p, v in r["ms_by_plane"].items())
+                     + ")" if "ms_by_plane" in r else "")
+                  + ", plain "
+                  f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+                  f"({r['bound_by']})" for k, r in rows.items()),
+              flush=True)
+    print(f"phase 12 sequential loop (phase 4's generator, the same "
+          f"batches): launches {json.dumps(seq_counts)}", flush=True)
+    return launches, kernel_rows, summary, keep
+
+
+def decoder_res(smi: str, gen, sources, batches):
+    """(b) The same sources with `final_resize=False` through
+    `fused_pseudo_soft_decoder_res`: label agreement with the exact path,
+    img/s of both, and the card against the CPU (f32) on a batch of
+    DEC_CPU_BATCH.  Returns the launches of its timed sweep."""
+    convs = gen.conversions
+
+    def models(dtype, device):
+        out = []
+        for (_, c), src in zip(SOURCES, sources):
+            m = ESPNetv2Segmentation(c, s=2.0, compute_dtype=dtype,
+                                     final_resize=False)
+            m.load_state_dict(src.model.state_dict())
+            out.append(m.to(device).eval())
+        return out
+
+    def fuse(ms, imgs, dtype, kc):
+        with torch.inference_mode():
+            x = generate.default_normalize(imgs).to(dtype)
+            return generate.fused_pseudo_soft_decoder_res(
+                [m(x) for m in ms], convs, HW, kc=kc)
+
+    dec = models(torch.bfloat16, "cuda")
+    run = lambda imgs: fuse(dec, imgs, torch.bfloat16, gen.kc)  # noqa: E731
+    timer, counts, _ = timed_batches(run, batches, STACK_BATCHES)
+    _expect(DEC_PER_BATCH, STACK_BATCHES, "decoder-res")(counts)
+    exact, _, _ = timed_batches(gen.batch_pass, batches, STACK_BATCHES)
+    lab_d, conf_d = run(batches[0])
+    with torch.inference_mode():
+        lab_e, conf_e = gen.batch_pass(batches[0])
+    same = lab_d == lab_e.int()
+    agree = same.float().mean().item()
+    mae = (conf_d - conf_e).abs()[same].mean().item()
+
+    kc_cpu = gen.kc.cpu()
+    imgs = batches[0][:DEC_CPU_BATCH]
+    lab_g, conf_g = fuse(models(torch.float32, "cuda"), imgs, torch.float32,
+                         gen.kc)
+    lab_c, conf_c = fuse(models(torch.float32, "cpu"), imgs.cpu(),
+                         torch.float32, kc_cpu)
+    eq = lab_g.cpu() == lab_c
+    cpu_agree = eq.float().mean().item()
+    cpu_conf = (conf_g.cpu() - conf_c).abs()[eq].max().item()
+    n_img = BATCH * STACK_BATCHES
+    d, e = timer.summary(), exact.summary()
+    print(f"phase 12 decoder-res fusion: the 3 sources with final_resize="
+          f"False, softmax / conversion / soft mean at {HW[0] // 2}x"
+          f"{HW[1] // 2}, then one resize of the fused 4-channel map: "
+          f"{n_img / d['total_s']:.2f} img/s against the exact path "
+          f"{n_img / e['total_s']:.2f} img/s ({STACK_BATCHES} batches of "
+          f"{BATCH}, StepTimer) on {smi} | label agreement with the exact "
+          f"path {agree:.6f} (floor {DEC_AGREE_FLOOR}), conf MAE where "
+          f"equal {mae:.4g} | card against CPU (f32, batch "
+          f"{DEC_CPU_BATCH}): labels {cpu_agree:.6f} (gate "
+          f"{DEC_CPU_AGREE}), max |conf err| where equal {cpu_conf:.3g} "
+          f"(gate {DEC_CPU_CONF}) | launches {json.dumps(counts)}",
+          flush=True)
+    if agree < DEC_AGREE_FLOOR or cpu_agree < DEC_CPU_AGREE \
+            or cpu_conf > DEC_CPU_CONF:
+        raise AssertionError(f"phase 12 decoder-res: agreement {agree}, "
+                             f"card vs CPU {cpu_agree}, conf {cpu_conf}")
+    return counts
+
+
+def bf16_training(smi: str):
+    """(c) `train --bf16` and `pretrain --bf16` through the CLI at phase
+    9's and phase 10's sizes (one epoch each), their checkpoints read
+    back, and one bf16 train step against the fp32 step from the same
+    weights.  Returns the launches over the two commands."""
+    import tempfile
+
+    from mspl_tpu_torch import cli
+    from mspl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    tally = {k: 0 for k in ALL_COUNTERS}
+    with tempfile.TemporaryDirectory() as root:
+        _write_cli_data(root, sets=("labeled",))
+        _write_cls_data(root)
+        lst = os.path.join(root, "labeled.txt")
+        ck = os.path.join(root, "ck_bf16")
+        r, secs, launches = _cli(
+            ["train", "--dataset", "greenhouse", "--data-root", root,
+             "--train-list", lst, "--val-list", lst, "--batch-size",
+             str(CLI_TRAIN["batch"]), "--epochs", "1", "--bf16",
+             "--ckpt-dir", ck] + CLI_SIZE, tally)
+        loss = r["history"][0]["loss"]
+        model, _, meta = cli.load_model_checkpoint(ck)
+        finite = all(torch.isfinite(t).all() for t in model.state_dict()
+                     .values() if t.is_floating_point())
+        if not (np.isfinite(loss) and finite and meta.get("bf16") is True
+                and model.compute_dtype == torch.bfloat16
+                and launches["pyr_branches"] > 0):
+            raise AssertionError(f"train --bf16: loss {loss}, meta {meta}, "
+                                 f"finite {finite}, launches {launches}")
+        line = (f"train --bf16 ({CLI_LABELED} images at {HW[0]}x{HW[1]}, "
+                f"batch {CLI_TRAIN['batch']}, 1 epoch) {secs:.3f} s, loss "
+                f"{loss:.4f}, val mIoU {r['history'][0]['miou']:.4f}, "
+                f"checkpoint read back (bf16 meta, finite), pyr_branches "
+                f"{launches['pyr_branches']} launches")
+        pre = os.path.join(root, "ck_pretrain_bf16")
+        r, secs, launches = _cli(
+            ["pretrain", "--data-root", root, "--train-list", "cls.txt",
+             "--val-list", "cls.txt", "--epochs", "1", "--batch-size",
+             str(CLI_CLS["batch"]), "--lr", str(CLI_CLS["lr"]), "--bf16",
+             "--ckpt-dir", pre], tally)
+        loss = r["history"][0]["loss"]
+        tree, meta = load_checkpoint(os.path.join(pre, "model_best.msgpack"))
+        finite = all(np.isfinite(v).all() for v in _flat(tree).values())
+        if not (np.isfinite(loss) and finite and meta.get("bf16") is True):
+            raise AssertionError(f"pretrain --bf16: loss {loss}, meta "
+                                 f"{meta}, finite {finite}")
+        line += (f"; pretrain --bf16 ({CLI_CLS['images']} images at "
+                 f"{CLS_HW[0]}x{CLS_HW[1]}, batch {CLI_CLS['batch']}, 1 "
+                 f"epoch) {secs:.3f} s, loss {loss:.4f}, val acc "
+                 f"{r['history'][0]['acc']:.4f}, checkpoint read back (bf16 "
+                 f"meta, finite)")
+    # one step in bf16 and in fp32 from the same weights, then 10 timed
+    model0, batch, cw = train_case()
+    before = {k: v.detach().cuda() for k, v in model0.named_parameters()}
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        m = ESPNetv2Segmentation(TRAIN_CLASSES, s=2.0, compute_dtype=dtype)
+        m.load_state_dict(model0.state_dict())
+        state, step = train_state(m, cw)
+        _zero_counts()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        n_launch = _counts()["pyr_branches"]
+        params = {k: v.detach().clone()
+                  for k, v in state.model.named_parameters()}
+        ms = time_ms(lambda: step(state, batch), reps=10)
+        res[dtype] = (metrics["loss"].item(), params, n_launch, ms)
+        del state, step, m
+    (l32, p32, _, ms32), (l16, p16, n16, ms16) = (res[torch.float32],
+                                                 res[torch.bfloat16])
+    if not np.isfinite(l16) or n16 != 4:
+        raise AssertionError(f"bf16 step: loss {l16}, {n16} launches")
+    print(f"phase 12 bf16 training on {smi}: {line} | one step of phase 6's "
+          f"model (batch {TRAIN_BATCH} at {HW[0]}x{HW[1]}, SGD): bf16 loss "
+          f"{l16:.6f} against fp32 {l32:.6f} ({abs(l16 - l32) / l32:.3g} "
+          f"relative), update gap |bf16 - fp32| / |fp32 update| "
+          f"{update_gap(p16, p32, before):.3g}; pyr_branches {n16} launches "
+          f"under autograd; {ms16:.2f} ms a bf16 step against {ms32:.2f} ms "
+          f"fp32 (CUDA events, 10 steps)", flush=True)
+    return tally
+
+
+def crop_on_card(smi: str, pool):
+    """(d) `random_scale_crop_flip` on the card against the CPU at the same
+    draws (images within 1e-5, labels equal)."""
+    from mspl_tpu_torch.data.transforms import random_scale_crop_flip
+
+    rng = np.random.default_rng(SEED + 12)
+    worst = 0.0
+    for i in range(CROP_DRAWS):
+        img = generate.default_normalize(torch.from_numpy(pool[i:i + 1]))[0]
+        lab = torch.from_numpy(rng.integers(0, TRAIN_CLASSES, HW))
+        got = random_scale_crop_flip(img.cuda(), lab.cuda(), HW,
+                                     torch.Generator().manual_seed(i))
+        want = random_scale_crop_flip(img, lab, HW,
+                                      torch.Generator().manual_seed(i))
+        worst = max(worst, check_close("phase 12 crop", got[0].cpu(),
+                                       want[0], atol=1e-5))
+        if not torch.equal(got[1].cpu(), want[1]):
+            raise AssertionError(f"phase 12 crop {i}: labels differ")
+    print(f"phase 12 per-image crop: random_scale_crop_flip of {CROP_DRAWS} "
+          f"images at {HW[0]}x{HW[1]} on {smi} against the CPU at the same "
+          f"draws: max |err| {worst:.3g} (limit 1e-5), labels equal",
+          flush=True)
+
+
+def profiling_card(smi: str, model, sources, gen, batches, summary):
+    """(e) The model card of the main path's widest source, a torch.profiler
+    trace of one stacked batch, and the StepTimer of the stacked sweep."""
+    import tempfile
+
+    from mspl_tpu_torch.utils.profiling import (estimate_flops,
+                                                model_parameters, trace)
+
+    from torch.autograd import DeviceType
+
+    src = sources[1].model
+    flops = estimate_flops(src, torch.zeros(1, 3, *HW))
+    tables = padded_tables()
+
+    def stacked():
+        _, blocks = stacked_logits(model, gen.normalize_fn, batches[0])
+        pseudo_cm.fused_pseudo_cm(blocks, tables, gen.kc)
+
+    lines = []
+    for name, fn in (("stacked", stacked),
+                     ("sequential", lambda: gen.batch_pass(batches[0]))):
+        with tempfile.TemporaryDirectory() as d:
+            with trace(d) as prof:
+                with torch.inference_mode():
+                    fn()
+                torch.cuda.synchronize()
+            files = os.listdir(d)
+            size = sum(os.path.getsize(os.path.join(d, f)) for f in files)
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        if not files or not dev:
+            raise AssertionError(f"phase 12 trace: files {files}, "
+                                 f"{len(dev)} device kernels")
+        dev.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        busy = sum(e.self_device_time_total for e in dev) / 1e3
+        lines.append(
+            f"trace of one {name} batch: {size / 2 ** 20:.2f} MiB, device "
+            f"busy {busy:.2f} ms, top kernels " + "; ".join(
+                f"{e.self_device_time_total / 1e3:.2f} ms {e.count}x "
+                f"{e.key.split('(')[0][:60]}" for e in dev[:6]))
+    print(f"phase 12 profiling on {smi}: model card of the {SOURCES[1][0]} "
+          f"source: {model_parameters(src) / 1e6:.3f} M params, "
+          f"{flops / 1e9:.3f} GFLOPs @ {HW[1]}x{HW[0]} (FlopCounterMode on "
+          f"an f32 CPU copy) | " + " | ".join(lines) + " | StepTimer of "
+          f"the stacked sweep "
+          f"{json.dumps({k: round(v, 6) for k, v in summary.items()})}",
+          flush=True)
+
+
+def phase_stack(smi: str):
+    """Phase 12: (a) the stacked sweep, (b) the decoder-resolution fusion,
+    (c) bf16 training through the CLI, (d) the per-image crop and (e) the
+    profiling utilities on the card.  Returns the launches of the stacked
+    routes and of the decoder-res sweep, and the kernels' rows at the
+    stacked shapes."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    sources = main_sources()
+    gen = generate.PseudoLabelGenerator(
+        sources, mode="soft", kc=np.full(3, KC, np.float32),
+        conf_mode="prob", device="cuda")
+    pool = main_pool()
+    batches = [torch.from_numpy(pool[:BATCH]).cuda(),
+               torch.from_numpy(pool[BATCH:2 * BATCH]).cuda()]
+    stack, rows, summary, model = stack_sweep(smi, gen, sources, batches)
+    dec = decoder_res(smi, gen, sources, batches)
+    profiling_card(smi, model, sources, gen, batches, summary)
+    del model
+    crop_on_card(smi, pool)
+    del gen, sources, batches
+    torch.cuda.empty_cache()
+    bf16_training(smi)
+    print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s on {smi}",
+          flush=True)
+    return stack, dec, rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batches", type=int, default=8,
@@ -4138,7 +4771,13 @@ def main():
     cls_launches, remat_launches = phase_pretrain(smi)
     mesh_launches = phase_mesh(smi, mesh_ref)
     del mesh_ref
+    stack_launches, dec_launches, stack_rows = phase_stack(smi)
     for r in rows:
+        r["stack_launches"] = {route: n[r["name"]]
+                               for route, n in stack_launches.items()}
+        r["decoder_res_launches"] = dec_launches[r["name"]]
+        if r["name"] in stack_rows:
+            r["stack"] = stack_rows[r["name"]]
         r["mesh_launches"] = mesh_launches[r["name"]]
         r["launches"] = launches[r["name"]]
         r["round_launches"] = round_launches[r["name"]]

@@ -64,6 +64,7 @@ from mspl_tpu_torch.parallel.mesh import (barrier, make_mesh_for_batch,
                                           maybe_init_distributed)
 from mspl_tpu_torch.utils.print_utils import (print_info_message,
                                               print_warning_message)
+from mspl_tpu_torch.utils.profiling import estimate_flops, model_parameters
 from mspl_tpu_torch.utils.registry import (CONF_MODES, FUSION_MODES,
                                            MODEL_NAMES, SCHEDULER_NAMES,
                                            SEGMENTATION_DATASETS,
@@ -152,11 +153,14 @@ def load_model_checkpoint(path_or_dir: str) -> Tuple[Any, Dict, Dict]:
     return model, variables, meta
 
 
-def _print_model_card(model) -> None:
-    """The parameter count at model build (the FLOPs wait for the port's
-    profiling module, ROADMAP A.7)."""
-    n_params = sum(p.numel() for p in model.parameters())
-    _info(f"model: {n_params / 1e6:.3f} M params")
+def _print_model_card(model, shape_hw, channels: int = 3) -> None:
+    """The model card at build: its parameter count and the GFLOPs of one
+    eval forward of a `channels` x `shape_hw` image (`utils/profiling.py`,
+    counted on a CPU copy of the model)."""
+    n_params = model_parameters(model)
+    flops = estimate_flops(model, torch.zeros((1, channels, *shape_hw)))
+    _info(f"model: {n_params / 1e6:.3f} M params, {flops / 1e9:.3f} GFLOPs "
+          f"@ {shape_hw[1]}x{shape_hw[0]}")
 
 
 def _check_cm_decoder(args) -> None:
@@ -249,7 +253,7 @@ def cmd_train(args) -> Dict:
     crop_hw = (crop_wh[1], crop_wh[0])
     in_ch = getattr(train_ds, "channels", 3)
     model = _new_model(args, info.num_classes, in_ch)
-    _print_model_card(model)
+    _print_model_card(model, train_ds.shape_hw, in_ch)
     if getattr(args, "pretrained_encoder", None):
         _load_pretrained_encoder(model, args.pretrained_encoder)
 
@@ -328,7 +332,7 @@ def cmd_pretrain(args) -> Dict:
         s=args.s, num_classes=num_classes,
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32),
         torch.Generator().manual_seed(0))
-    _print_model_card(model)
+    _print_model_card(model, (size_wh[1], size_wh[0]))
     cfg = ClsTrainConfig(epochs=args.epochs, lr=args.lr,
                          optimizer=args.optimizer, scheduler=args.scheduler,
                          weight_decay=args.weight_decay, seed=args.seed)

@@ -15,6 +15,8 @@ the same window (outside the image: ignore), then both flip.  The draws
 (s, y0, x0, flip) are made per image from an explicit torch.Generator
 (`draw_scale_crop_flip`), and `scale_crop_flip` is the deterministic rest,
 which the tests hold against the reference at the reference's own draws.
+`random_scale_crop_flip` is the reference's per-image function: one
+image's draws, then the core on a batch of one.
 """
 
 from __future__ import annotations
@@ -131,6 +133,27 @@ def draw_scale_crop_flip(n: int, in_hw: Tuple[int, int],
     y0 = u[:, 1] * (in_hw[0] - crop_hw[0] / s).clamp_min(0.0)
     x0 = u[:, 2] * (in_hw[1] - crop_hw[1] / s).clamp_min(0.0)
     return s, y0, x0, u[:, 3] < 0.5
+
+
+def random_scale_crop_flip(img: torch.Tensor, label: torch.Tensor,
+                           crop_hw: Tuple[int, int],
+                           generator: torch.Generator,
+                           scale_range: Tuple[float, float] = (0.5, 2.0),
+                           ignore_label: int = IGNORE_LABEL
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused RandomScale + RandomCrop + RandomFlip of one image, its draws
+    (s, y0, x0, flip) from `generator` (`draw_scale_crop_flip`).
+
+    img: float [C, H, W] (normalized or raw), label: integer [H, W].
+    Returns (float32 [C, ch, cw], labels [ch, cw] in the label's dtype) on
+    the image's device: the image resampled bilinearly through the window,
+    the labels sampled nearest through it, pixels from outside the image
+    `ignore_label`."""
+    draws = draw_scale_crop_flip(1, tuple(img.shape[1:3]), crop_hw,
+                                 generator, scale_range)
+    out, lab = scale_crop_flip(img[None], label[None], crop_hw, *draws,
+                               ignore_label=ignore_label)
+    return out[0], lab[0]
 
 
 def train_transform(imgs: torch.Tensor, labels: torch.Tensor,

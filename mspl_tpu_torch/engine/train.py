@@ -60,7 +60,10 @@ optimizer step; the state is replicated at the start and stays equal on
 every rank, so the step is the single-device step on the global batch up
 to rounding.  Model slices of the mesh are replicas of one another.  Only
 the mesh's first rank logs and writes checkpoints; every rank resumes from
-the same file; ranks outside the mesh receive the trained weights.
+the same file; ranks outside the mesh receive the trained weights.  With
+`torch.distributed` initialized and no mesh given, `train_segmentation`
+takes `make_mesh_for_batch(train_loader.batch_size)`, as the reference
+defaults to a mesh over every device; one process trains alone.
 """
 
 from __future__ import annotations
@@ -82,8 +85,9 @@ from mspl_tpu_torch.engine.metrics import MIOU, confusion_matrix
 from mspl_tpu_torch.engine.schedules import Schedule, build_schedule
 from mspl_tpu_torch.layers.conv_blocks import (bn_stat_groups, bn_sync,
                                                frozen_bn_stats)
-from mspl_tpu_torch.parallel.mesh import (barrier, psum, replicate,
-                                          shard_batch, share_with_outside)
+from mspl_tpu_torch.parallel.mesh import (barrier, make_mesh_for_batch, psum,
+                                          replicate, shard_batch,
+                                          share_with_outside)
 from mspl_tpu_torch.pseudo.generate import load_variables
 from mspl_tpu_torch.utils.checkpoint import (has_checkpoint, load_checkpoint,
                                              save_checkpoint)
@@ -435,6 +439,8 @@ def train_segmentation(
     job runs this call with the same loaders and mesh (module docstring);
     each ends with the same weights and result.  Returns {'state',
     'best_miou', 'history'}."""
+    if mesh is None and dist.is_initialized():
+        mesh = make_mesh_for_batch(train_loader.batch_size)
     if variables is not None:
         load_variables(model, variables)
     steps_per_epoch = max(len(train_loader), 1)

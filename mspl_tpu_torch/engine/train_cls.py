@@ -26,6 +26,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -35,8 +36,9 @@ from mspl_tpu_torch.engine.train import (TrainState, _bn_context, _norm_kw,
                                          _on, create_train_state, data_axis,
                                          data_rows, step_generator,
                                          sum_grads)
-from mspl_tpu_torch.parallel.mesh import (barrier, psum, replicate,
-                                          shard_batch, share_with_outside)
+from mspl_tpu_torch.parallel.mesh import (barrier, make_mesh_for_batch, psum,
+                                          replicate, shard_batch,
+                                          share_with_outside)
 from mspl_tpu_torch.pseudo.generate import load_variables
 from mspl_tpu_torch.utils.print_utils import print_log_message
 
@@ -134,7 +136,11 @@ def train_classification(model: nn.Module, variables, train_loader,
     trained in place.  With `mesh`, every rank of the job runs this call
     with the same loaders and mesh; only the mesh's first rank logs, and
     ranks outside the mesh receive the weights and the result.  Returns
-    {'state', 'history', 'best_acc'}."""
+    {'state', 'history', 'best_acc'}.  With `torch.distributed`
+    initialized and no mesh given, the mesh is
+    `make_mesh_for_batch(train_loader.batch_size)`, as the reference's."""
+    if mesh is None and dist.is_initialized():
+        mesh = make_mesh_for_batch(train_loader.batch_size)
     if variables is not None:
         load_variables(model, variables)
     steps_per_epoch = max(len(train_loader), 1)

@@ -11,6 +11,15 @@ kernel of `ops/eesp_branches.py`, as the JAX package's flag sends it to its
 Pallas kernel.  The parameter tree is the same either way.  Both units run
 in train mode (BatchNorm on batch statistics) on the native route; the
 kernel route is eval only, since its TPU kernel has no VJP.
+
+`stack` (ensemble weight stacking, `layers/stacking.py`): the unit carries
+`stack` models side by side, channels m-major, at the per-model widths
+`nin` and `nout`.  Every conv's groups are multiplied by `stack`, the
+branch merge and the pool ++ EESP concat interleave per model
+(`stacked_concat`), and the reinforcement from the raw image, which the
+models share, is a dense conv with `stack` times the outputs.  The
+branch kernel writes its K outputs branch-major ([K, stack*n] channels),
+so the `use_pallas` route reorders them to m-major ([stack, K, n]).
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mspl_tpu_torch.layers.conv_blocks import BR, CB, CBR, PReLU
+from mspl_tpu_torch.layers.stacking import stacked_concat
 from mspl_tpu_torch.ops.eesp_branches import eesp_branches, pack_taps
 
 
@@ -45,26 +55,28 @@ class EESP(nn.Module):
 
     def __init__(self, nin: int, nout: int, stride: int = 1, k: int = 4,
                  r_lim: int = 7, down_method: str = "esp",
-                 use_pallas: bool = False):
+                 use_pallas: bool = False, stack: int = 1):
         super().__init__()
         self.use_pallas = use_pallas
         n = nout // k
         if n * k != nout:
             raise ValueError(f"EESP nout={nout} must be divisible by k={k}")
         self.stride = stride
+        self.stack = s = stack
         self.avg = stride == 2 and down_method == "avg"
         groups = k if (nin % k == 0 and n % k == 0) else 1
-        self.proj_1x1 = CBR(nin, n, 1, groups=groups)
+        self.proj_1x1 = CBR(nin * s, n * s, 1, groups=groups * s)
         self.dilations = branch_dilations(k, r_lim)
         # branch i is flax's `dw_d{i}_kernel`, as a depthwise OIHW weight
         self.dw = nn.ParameterList(
-            [nn.Parameter(torch.empty(n, 1, 3, 3)) for _ in self.dilations])
+            [nn.Parameter(torch.empty(n * s, 1, 3, 3))
+             for _ in self.dilations])
         for wk in self.dw:
             nn.init.kaiming_normal_(wk, nonlinearity="relu")
-        self.br_after_cat = BR(nout)
-        self.conv_1x1_exp = CB(nout, nout, 1, groups=groups)
+        self.br_after_cat = BR(nout * s)
+        self.conv_1x1_exp = CB(nout * s, nout * s, 1, groups=groups * s)
         if not self.avg:
-            self.module_act = PReLU(nout)
+            self.module_act = PReLU(nout * s)
 
     def branch_taps(self) -> torch.Tensor:
         """The K depthwise kernels in the branch kernel's packed [n, K*9]
@@ -96,6 +108,11 @@ class EESP(nn.Module):
                     "branch kernel (its TPU kernel, pallas_eesp.py, has no "
                     "VJP); train with use_pallas=False")
             merged = eesp_branches(proj, self.branch_taps(), self.dilations)
+            if self.stack > 1:  # [K, stack, n] -> m-major [stack, K, n]
+                b, c, h, w = merged.shape
+                merged = merged.reshape(
+                    b, len(self.dilations), self.stack, -1, h, w).transpose(
+                        1, 2).reshape(b, c, h, w)
         else:
             branches = []
             for wk, d in zip(self.dw, self.dilations):
@@ -104,7 +121,7 @@ class EESP(nn.Module):
                 if branches:  # hierarchical feature fusion
                     b = b + branches[-1]
                 branches.append(b)
-            merged = torch.cat(branches, dim=1)
+            merged = stacked_concat(branches, self.stack)
         merged = self.br_after_cat(merged)
         expanded = self.conv_1x1_exp(merged)
         if self.avg:
@@ -118,25 +135,29 @@ class EESP(nn.Module):
 
 class DownSampler(nn.Module):
     """Strided EESP ++ avg-pool shortcut ++ input reinforcement from the
-    `img_ch`-channel image (RGB, or RGB-D with 4)."""
+    `img_ch`-channel image (RGB, or RGB-D with 4); `stack` models side by
+    side, at the per-model widths `nin` and `nout`."""
 
     def __init__(self, nin: int, nout: int, k: int = 4, r_lim: int = 9,
-                 reinf: bool = True, img_ch: int = 3):
+                 reinf: bool = True, img_ch: int = 3, stack: int = 1):
         super().__init__()
         if nout <= nin:
             raise ValueError(f"DownSampler needs nout({nout}) > nin({nin})")
+        self.stack = s = stack
         self.eesp = EESP(nin, nout - nin, stride=2, k=k, r_lim=r_lim,
-                         down_method="avg")
+                         down_method="avg", stack=s)
         self.reinf = reinf
         if reinf:
-            self.inp_reinf_cbr = CBR(img_ch, img_ch, 3)
-            self.inp_reinf_cb = CB(img_ch, nout, 1)
-        self.act = PReLU(nout)
+            # the image is the models' shared input: a dense conv with s
+            # times the outputs, then one grouped by model
+            self.inp_reinf_cbr = CBR(img_ch, img_ch * s, 3)
+            self.inp_reinf_cb = CB(img_ch * s, nout * s, 1, groups=s)
+        self.act = PReLU(nout * s)
 
     def forward(self, x: torch.Tensor,
                 img: Optional[torch.Tensor] = None) -> torch.Tensor:
         avg_out, eesp_out = self.eesp(x, with_pool=True)
-        out = torch.cat([avg_out, eesp_out], dim=1)
+        out = stacked_concat([avg_out, eesp_out], self.stack)
         if self.reinf and img is not None:
             while img.shape[2:] != out.shape[2:]:
                 img = _avg_pool_3x3_s2(img)

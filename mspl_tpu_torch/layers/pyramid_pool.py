@@ -17,6 +17,16 @@ with `fuse_tail` the whole eval block after the proj goes through the
 `channel_major_out`), while train runs the plain tail.  Either way the
 output is channel-major.
 `EfficientPWC`: grouped 3x3 expansion gated by a global-context sigmoid.
+
+`stack` (ensemble weight stacking, `layers/stacking.py`): both blocks
+carry `stack` models side by side, channels m-major, at the per-model
+widths.  The proj (and the commuted eval proj) is a 1x1 conv grouped by
+`stack`; the branch stack's output is scale-major ([scale, model, p]
+channels; `merge_br`'s parameters are interleaved to match,
+`stack_variables`), and the per-model shuffle lands it m-major; the merge
+takes p*stack groups and the classifier `stack`.  The fused tail runs only
+at stack 1, as the reference's does: a stacked classifier stage runs the
+branch kernel and the plain tail.
 """
 
 from __future__ import annotations
@@ -37,28 +47,33 @@ from mspl_tpu_torch.ops.resize import resize_bilinear
 class EfficientPyrPool(nn.Module):
     def __init__(self, nin: int, proj_features: int, out_features: int,
                  scales: Tuple[float, ...] = (2.0, 1.5, 1.0, 0.5, 0.1),
-                 last_layer_br: bool = True, fuse_tail: bool = False):
+                 last_layer_br: bool = True, fuse_tail: bool = False,
+                 stack: int = 1):
         super().__init__()
         p = proj_features
         self.scales = tuple(sorted(scales, reverse=True))
         s_n = len(self.scales)
         self.fuse_tail = fuse_tail
-        self.proj = CBR(nin, p, 1)
+        self.stack = s = stack
+        self.proj = CBR(nin * s, p * s, 1, groups=s)
         # flax's `dw_s{i}_kernel` (3, 3, 1, P) for scale i, stacked into the
         # [S, 3, 3, P] layout the branch kernels take
-        self.dw_weights = nn.Parameter(torch.randn(s_n, 3, 3, p) * (2 / 9) ** 0.5)
-        self.merge_br = BR(s_n * p)
-        self.merge_cbr = CBR(s_n * p, p, 3, groups=p)
-        self.classify = C(p, out_features, 1, bias=not last_layer_br)
-        self.last_br = BR(out_features) if last_layer_br else None
+        self.dw_weights = nn.Parameter(
+            torch.randn(s_n, 3, 3, p * s) * (2 / 9) ** 0.5)
+        self.merge_br = BR(s_n * p * s)
+        self.merge_cbr = CBR(s_n * p * s, p * s, 3, groups=p * s)
+        self.classify = C(p * s, out_features * s, 1, groups=s,
+                          bias=not last_layer_br)
+        self.last_br = BR(out_features * s) if last_layer_br else None
 
     def _proj_commuted(self, x: torch.Tensor, pre: torch.Tensor) -> torch.Tensor:
         cb = self.proj.cb
         a, beff = cb.bn.eval_affine()
-        ka = cb.conv.conv.weight[:, :, 0, 0] * a[:, None]  # [P, Cin]
+        ka = cb.conv.conv.weight[:, :, 0, 0] * a[:, None]  # [P, Cin / stack]
 
         def pconv(t):
-            return F.conv2d(t, ka.to(t.dtype)[:, :, None, None])
+            return F.conv2d(t, ka.to(t.dtype)[:, :, None, None],
+                            groups=self.stack)
 
         za = resize_bilinear(pconv(pre), (x.shape[2], x.shape[3]),
                              align_corners=True, order="wh")
@@ -94,13 +109,20 @@ class EfficientPyrPool(nn.Module):
             x = self.proj(x)
         else:
             x = self.proj(x) if pre is None else self._proj_commuted(x, pre)
-        if self.fuse_tail and not self.training:
+        if self.fuse_tail and not self.training and self.stack == 1:
             aff1, mw, aff2, cls_w, cls_b, aff3 = self._tail_params()
             return pyr_pool_fused_eval(x, self.dw_weights, aff1, mw, aff2,
                                        cls_w, cls_b, aff3, self.scales)
         out = pyr_branches(x, self.dw_weights, self.scales)
         out = self.merge_br(out)
-        out = channel_shuffle(out, len(self.scales))
+        if self.stack > 1:
+            # scale-major [scale, model, p] -> m-major [model, p, scale]:
+            # each model's shuffle in one transposed copy
+            b, c, h, w = out.shape
+            out = out.reshape(b, len(self.scales), self.stack, -1, h, w
+                              ).permute(0, 2, 3, 1, 4, 5).reshape(b, c, h, w)
+        else:
+            out = channel_shuffle(out, len(self.scales))
         out = self.classify(self.merge_cbr(out))
         if self.last_br is not None:
             out = self.last_br(out)
@@ -110,10 +132,12 @@ class EfficientPyrPool(nn.Module):
 class EfficientPWC(nn.Module):
     """Pointwise expansion gated by a global-context sigmoid."""
 
-    def __init__(self, nin: int, nout: int):
+    def __init__(self, nin: int, nout: int, stack: int = 1):
         super().__init__()
-        self.wt_conv = C(nin, nout, 1)
-        self.expand = CBR(nin, nout, 3, groups=math.gcd(nin, nout))
+        s = stack
+        self.wt_conv = C(nin * s, nout * s, 1, groups=s)
+        self.expand = CBR(nin * s, nout * s, 3,
+                          groups=math.gcd(nin, nout) * s)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         gate = torch.sigmoid(self.wt_conv(x.mean(dim=(2, 3), keepdim=True)))

@@ -34,6 +34,18 @@ fused-stage kernel of `ops/eesp_stage.py` and takes precedence over
 reference's do (`fuse and not train`).  The classifier's level5 units
 honour `use_pallas`; `fuse_stages` leaves them unit by unit, as the
 reference does.  The parameter tree is the same for every flag.
+
+`stack` (ensemble weight stacking, `layers/stacking.py`) runs `stack`
+models of one architecture as one forward, channels m-major: the stem
+reads the shared image with `stack` times the outputs, every other layer
+runs grouped by model, and the logits carry stack * num_classes channels
+(heads of other widths are padded to num_classes when their trees are
+stacked, `stack_variables`).  `fuse_stages` does not take it and the
+classifier head does not either (ValueError, as the reference's).
+`final_resize=False` returns the logits at the decoder's resolution
+[B, C, H/2, W/2], in eval and in train, before the x2 resize, which then
+does not run (the decoder-resolution fusion of
+`pseudo/generate.py::fused_pseudo_soft_decoder_res`).
 """
 
 from __future__ import annotations
@@ -84,31 +96,37 @@ class EESPNet(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  use_pallas: bool = False, fuse_stages: bool = False,
                  in_channels: int = 3, num_classes: Optional[int] = None,
-                 drop_rate: float = 0.2):
+                 drop_rate: float = 0.2, stack: int = 1):
         super().__init__()
+        if stack > 1 and fuse_stages:
+            raise ValueError("fuse_stages (experimental) does not support "
+                             "ensemble stacking")
+        if stack > 1 and num_classes is not None:
+            raise ValueError("the classification head does not support "
+                             "ensemble stacking (pretraining-only path)")
         cfg = eespnet_channel_plan(s)
         self.num_classes = num_classes
         self.drop_rate = drop_rate
         self.reinf = reinf
         self.compute_dtype = compute_dtype
         self.fuse_stages = fuse_stages
-        self.level1 = CBR(in_channels, cfg[0], 3, stride=2)
+        self.level1 = CBR(in_channels, cfg[0] * stack, 3, stride=2)
         self.level2_0 = DownSampler(cfg[0], cfg[1], k=_STAGE_K[0],
                                     r_lim=_STAGE_RLIM[0], reinf=reinf,
-                                    img_ch=in_channels)
+                                    img_ch=in_channels, stack=stack)
         self.level3_0 = DownSampler(cfg[1], cfg[2], k=_STAGE_K[1],
                                     r_lim=_STAGE_RLIM[1], reinf=reinf,
-                                    img_ch=in_channels)
+                                    img_ch=in_channels, stack=stack)
         self.level3_blocks = nn.ModuleList(
             [EESP(cfg[2], cfg[2], k=_STAGE_K[2], r_lim=_STAGE_RLIM[2],
-                  use_pallas=use_pallas)
+                  use_pallas=use_pallas, stack=stack)
              for _ in range(_STAGE_REPS[1])])
         self.level4_0 = DownSampler(cfg[2], cfg[3], k=_STAGE_K[2],
                                     r_lim=_STAGE_RLIM[2], reinf=reinf,
-                                    img_ch=in_channels)
+                                    img_ch=in_channels, stack=stack)
         self.level4_blocks = nn.ModuleList(
             [EESP(cfg[3], cfg[3], k=_STAGE_K[3], r_lim=_STAGE_RLIM[3],
-                  use_pallas=use_pallas)
+                  use_pallas=use_pallas, stack=stack)
              for _ in range(_STAGE_REPS[2])])
         if num_classes is None:
             return
@@ -208,20 +226,24 @@ def copy_encoder(seg: nn.Module, cls: EESPNet) -> None:
 
 class ESPNetv2Segmentation(nn.Module):
     """ESPNetv2 segmentation model: encoder + bottom-up decoder, emitting
-    channel-major logits [B, num_classes, H, W] from NCHW input."""
+    channel-major logits [B, stack * num_classes, H, W] from NCHW input
+    (at H/2 x W/2 with `final_resize=False`)."""
 
     def __init__(self, num_classes: int, s: float = 2.0,
                  dec_base_planes: int = 16,
                  compute_dtype: torch.dtype = torch.float32,
                  channel_major_logits: bool = True,
                  use_pallas: bool = False, fuse_stages: bool = False,
-                 in_channels: int = 3):
+                 in_channels: int = 3, stack: int = 1,
+                 final_resize: bool = True):
         super().__init__()
         if not channel_major_logits:
             raise ValueError("the port's logits are channel-major (NCHW); "
                              "channel_major_logits=False has no counterpart")
         self.num_classes = num_classes
         self.compute_dtype = compute_dtype
+        self.stack = stack
+        self.final_resize = final_resize
         cfg = eespnet_channel_plan(s)
         bp = dec_base_planes
         dec = (4 * bp, 3 * bp, 2 * bp, num_classes)
@@ -230,15 +252,16 @@ class ESPNetv2Segmentation(nn.Module):
         self.base_net = EESPNet(s=s, reinf=True, compute_dtype=compute_dtype,
                                 use_pallas=use_pallas,
                                 fuse_stages=fuse_stages,
-                                in_channels=in_channels)
-        self.bu_dec_l1 = EfficientPyrPool(cfg[3], proj, dec[0])
-        self.merge_l2 = EfficientPWC(cfg[2], dec[0])
-        self.bu_dec_l2 = EfficientPyrPool(dec[0], proj, dec[1])
-        self.merge_l3 = EfficientPWC(cfg[1], dec[1])
-        self.bu_dec_l3 = EfficientPyrPool(dec[1], proj, dec[2])
-        self.merge_l4 = EfficientPWC(cfg[0], dec[2])
+                                in_channels=in_channels, stack=stack)
+        self.bu_dec_l1 = EfficientPyrPool(cfg[3], proj, dec[0], stack=stack)
+        self.merge_l2 = EfficientPWC(cfg[2], dec[0], stack=stack)
+        self.bu_dec_l2 = EfficientPyrPool(dec[0], proj, dec[1], stack=stack)
+        self.merge_l3 = EfficientPWC(cfg[1], dec[1], stack=stack)
+        self.bu_dec_l3 = EfficientPyrPool(dec[1], proj, dec[2], stack=stack)
+        self.merge_l4 = EfficientPWC(cfg[0], dec[2], stack=stack)
         self.bu_dec_l4 = EfficientPyrPool(dec[2], proj, dec[3],
-                                          last_layer_br=False, fuse_tail=True)
+                                          last_layer_br=False, fuse_tail=True,
+                                          stack=stack)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         l1, l2, l3, l4 = self.base_net.encode(x)
@@ -246,6 +269,8 @@ class ESPNetv2Segmentation(nn.Module):
         out = self.bu_dec_l2(self.merge_l2(l3), pre=out)
         out = self.bu_dec_l3(self.merge_l3(l2), pre=out)
         out = self.bu_dec_l4(self.merge_l4(l1), pre=out)  # [B, C, H/2, W/2]
+        if not self.final_resize:
+            return out
         resize = resize_x2_cm_plain if self.training else resize_x2_cm
         return resize(out, (x.shape[2], x.shape[3]), align_corners=True)
 

@@ -29,6 +29,12 @@ hard epilogue and kc run on every slice.  The data axis's rows are then
 gathered (`gather_rows`), and ranks outside the mesh receive them by
 broadcast, so every rank returns every image's label and confidence in
 loader order.
+
+`fused_pseudo_soft_decoder_res` is the opt-in soft fusion at the decoder's
+resolution, for `final_resize=False` models: softmax, conversion and the
+mean at H/2 x W/2, then one resize of the fused (T+1)-channel map.  It is
+plain torch, as the JAX function is plain XLA; the models' decoder still
+runs the fused tail kernel, and the logits resize kernel does not run.
 """
 
 from __future__ import annotations
@@ -44,9 +50,11 @@ from mspl_tpu_torch.data.label_space import label_conversion_matrix
 from mspl_tpu_torch.data.transforms import normalize as default_normalize
 from mspl_tpu_torch.ops.pseudo import fused_pseudo_pass_plain as \
     fused_pseudo_pass  # the reference pass, under the JAX package's name
-from mspl_tpu_torch.ops.pseudo import (apply_kc, fused_pseudo_pass_pm,
-                                       fusion_epilogue, fusion_term)
+from mspl_tpu_torch.ops.pseudo import (apply_kc, entropy_confidence,
+                                       fused_pseudo_pass_pm, fusion_epilogue,
+                                       fusion_term)
 from mspl_tpu_torch.ops.pseudo_cm import fused_pseudo_cm
+from mspl_tpu_torch.ops.resize import resize_bilinear_cm
 from mspl_tpu_torch.parallel.mesh import (Mesh, gather_rows, psum,
                                           replicate, shard_batch)
 from mspl_tpu_torch.utils.flax_bridge import load_flax_variables
@@ -76,6 +84,50 @@ class SourceModel:
             imgs = imgs[:, : self.in_channels]
         out = self.model(imgs)
         return out if self.channel_major else out.permute(0, 2, 3, 1)
+
+
+def fused_pseudo_soft_decoder_res(
+    logits_cm: Sequence[torch.Tensor],
+    conversions: Sequence[np.ndarray],
+    out_hw: Tuple[int, int],
+    kc=None,
+    ignore_label: int = IGNORE_LABEL,
+    conf_mode: str = "prob",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Soft fusion at the decoder's resolution (an opt-in approximation).
+
+    The exact pipeline resizes every model's C_src logits to the input's
+    resolution before the softmax, as the reference does.  This variant
+    takes channel-major logits [B, C_m, h, w] of `final_resize=False`
+    models, softmaxes, converts into the target space and averages there
+    (a quarter of the pixels), then resizes the fused [B, T+1, h, w] map
+    to `out_hw` (align_corners bilinear, channel-major, H then W).  A
+    bilinear resize is a convex combination, so the resized map is still a
+    distribution; the label / confidence epilogue (argmax and max over the
+    T target columns, or 1 - H / ln(T+1) over all T+1) and kc follow at
+    full resolution.  It differs from the exact path where interpolation
+    and softmax do not commute: at class boundaries.  Returns (label
+    int32 [B, H, W], conf f32 [B, H, W])."""
+    if not logits_cm or len(logits_cm) != len(conversions):
+        raise ValueError("need N>=1 matching logits/conversion pairs")
+    if conf_mode not in ("prob", "entropy"):
+        raise ValueError(f"unknown conf_mode '{conf_mode}'")
+    t = int(np.asarray(conversions[0]).shape[1]) - 1
+    acc = None
+    for lg, mat in zip(logits_cm, conversions):
+        p = torch.softmax(lg.to(torch.float32), dim=1)
+        tab = torch.as_tensor(np.asarray(mat, np.float32), device=lg.device)
+        q = torch.einsum("bchw,ct->bthw", p, tab)
+        acc = q if acc is None else acc + q
+    fused = acc / len(logits_cm)
+    up = resize_bilinear_cm(fused, out_hw, align_corners=True)
+    tgt = up[:, :t]
+    label = torch.argmax(tgt, dim=1).to(torch.int32)
+    if conf_mode == "entropy":
+        conf = entropy_confidence(up.movedim(1, -1))
+    else:
+        conf = tgt.amax(dim=1)
+    return apply_kc(label, conf, kc, t, ignore_label)
 
 
 _AUTO = object()

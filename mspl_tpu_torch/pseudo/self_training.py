@@ -30,7 +30,10 @@ re-flattens its devices.  Every rank holds the whole round's labels, so
 the CBST histograms and kc are the same on each; ranks outside the train
 mesh skip the steps and receive the weights, so every rank ends each round
 with the same model.  Only the mesh's first rank writes the label PNGs,
-the train list and the round checkpoints, and prints.
+the train list and the round checkpoints, and prints.  Without a mesh in
+a job of several ranks, each rank generates on its own and the fine-tune
+takes the job's data-parallel mesh, as `train_segmentation` does (the
+reference's `train_mesh=None`); rank 0 writes.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch.distributed as dist
 import torch.nn as nn
 
 from mspl_tpu_torch.data.loader import DataLoader
@@ -128,7 +132,11 @@ def self_training(
     'history', 'best_miou'}."""
     train_mesh = (None if mesh is None else
                   make_mesh_for_batch(cfg.batch_size, ranks=mesh.ranks))
-    first = mesh is None or mesh.is_first
+    # without a mesh in a job of several ranks, each rank generates alone,
+    # the fine-tune takes the job's data mesh (`train_segmentation`), and
+    # rank 0 writes
+    first = (mesh.is_first if mesh is not None
+             else not dist.is_initialized() or dist.get_rank() == 0)
     if variables is not None:
         load_variables(model, variables)
     model.to(device)

@@ -1,0 +1,133 @@
+"""Tracing and profiling utilities (port of mspl_tpu/utils/profiling.py).
+
+* `model_parameters` / `estimate_flops`: the model card at build time (the
+  reference prints the FLOPs and the parameter count of a model).
+* `device_sync`: wait until the device work behind a tree of tensors is
+  done, for honest timing on the host's clock.
+* `StepTimer`: per-step wall-clock statistics.
+* `trace`: a context manager that writes a `torch.profiler` trace of the
+  code in it, which TensorBoard's profiler plugin and chrome://tracing
+  read.
+
+The JAX package's `start_profiler_server` has no counterpart:
+`torch.profiler` has no server that a profiler client attaches to over
+the network while a run goes on; wrap the steps to profile in `trace`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import os
+import time
+from typing import Dict, Iterator, List, Mapping
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from mspl_tpu_torch.layers.stacking import flatten_tree
+
+
+def model_parameters(params) -> int:
+    """Total parameter count of a module (its parameters, no buffers) or of
+    a flax-layout tree of arrays (nested dicts, e.g. a variable tree's
+    "params")."""
+    if isinstance(params, nn.Module):
+        return int(sum(p.numel() for p in params.parameters()))
+    return int(sum(np.prod(np.shape(a)) for a in
+                   flatten_tree(params).values()))
+
+
+def estimate_flops(model: nn.Module, *inputs: torch.Tensor) -> float:
+    """FLOPs of one eval forward of `model` on `inputs`, counted by
+    `torch.utils.flop_counter.FlopCounterMode` (2 per multiply-add of the
+    convolutions and matrix products, einsums included).
+
+    It runs an f32 CPU copy of the model in eval mode on CPU copies of the
+    inputs, so every kernel wrapper takes its plain version: the counter
+    sees only PyTorch's own operators and would miss the port's CUDA
+    kernels on the card.  The count depends on the shapes alone, so a bf16
+    model is counted in f32, which every CPU runs at speed.  It leaves out
+    elementwise work (BatchNorm, PReLU, softmax), which the JAX package's
+    XLA cost analysis includes, so it reads a few percent below that
+    estimate."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    twin = copy.deepcopy(model).to("cpu", torch.float32).eval()
+    for mod in twin.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = torch.float32
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        twin(*(x.to("cpu", torch.float32) for x in inputs))
+    return float(counter.get_total_flops())
+
+
+def _tensors(tree) -> Iterator[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, Mapping):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def device_sync(tree) -> None:
+    """Wait for every CUDA device that holds a tensor of `tree` (nested
+    dicts, lists and tuples of tensors) to finish its queued work:
+    PyTorch returns before the device does, so a host clock read without
+    this times the enqueue."""
+    for dev in {t.device for t in _tensors(tree) if t.is_cuda}:
+        torch.cuda.synchronize(dev)
+
+
+class StepTimer:
+    """Accumulates per-step wall-clock times; `summary()` gives mean/p50/p95.
+
+    Usage:
+        timer = StepTimer()
+        with timer.step():
+            out = train_step(...)
+            device_sync(out)
+    """
+
+    def __init__(self):
+        self.times: List[float] = []
+
+    @contextlib.contextmanager
+    def step(self):
+        t0 = time.perf_counter()
+        yield
+        self.times.append(time.perf_counter() - t0)
+
+    def summary(self) -> Dict[str, float]:
+        if not self.times:
+            return {"steps": 0}
+        t = np.asarray(self.times)
+        return {
+            "steps": int(t.size),
+            "mean_s": float(t.mean()),
+            "p50_s": float(np.percentile(t, 50)),
+            "p95_s": float(np.percentile(t, 95)),
+            "total_s": float(t.sum()),
+        }
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the block with `torch.profiler` (host operators, and the
+    CUDA kernels when a card is present) and write its trace into
+    `log_dir` (`*.pt.trace.json`, TensorBoard's profiler plugin reads
+    it); yields the profiler."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof

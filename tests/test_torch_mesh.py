@@ -231,7 +231,11 @@ def two_ranks(tmp_path_factory):
         cls_classes=CLS_CLASSES, cls_variables=port_tree(cls_model),
         cls_images=rng.integers(0, 256, (8, *CLS_HW, 3), dtype=np.uint8),
         cls_labels=rng.integers(0, CLS_CLASSES, 8).astype(np.int32),
-        cli_argv=cli_argv + ["--out-dir", str(tmp / "cli_mesh")])
+        cli_argv=cli_argv + ["--out-dir", str(tmp / "cli_mesh")],
+        loop_images=rng.integers(0, 256, (8, *HW, 3), dtype=np.uint8),
+        loop_labels=rng.integers(0, CLASSES, (8, *HW)).astype(np.int32),
+        ckpt_no_mesh=str(tmp / "ckpt_no_mesh"),
+        ckpt_mesh=str(tmp / "ckpt_mesh"))
     ranks = spawn_ranks(2, tmp, "train_cases", job)
     return dict(job=job, ranks=ranks, tmp=tmp, cli_argv=cli_argv)
 
@@ -446,6 +450,32 @@ def test_train_classification_on_the_mesh(two_ranks):
                                    err_msg=k)
         np.testing.assert_array_equal(r1["state"][k], r0["state"][k],
                                       err_msg=k)
+
+
+def test_training_without_a_mesh_takes_the_job_data_mesh(two_ranks):
+    """With `torch.distributed` up and no mesh given, `train_segmentation`
+    and `train_classification` train on `make_mesh_for_batch(batch)`, as
+    the reference defaults: bit for bit the explicit mesh's run, the same
+    weights on both ranks, and only rank 0 writes the checkpoints."""
+    r0, r1 = two_ranks["ranks"]
+    for r in (r0, r1):
+        got, want = r["loop_no_mesh"], r["loop_mesh"]
+        assert got["history"] == want["history"]
+        assert got["best"] == want["best"]
+        for k, v in want["state"].items():
+            np.testing.assert_array_equal(got["state"][k], v, err_msg=k)
+        cg, cw = r["classification_no_mesh"], r["classification"]
+        assert cg["history"] == cw["history"]
+        for k, v in cw["state"].items():
+            np.testing.assert_array_equal(cg["state"][k], v, err_msg=k)
+    for k, v in r0["loop_no_mesh"]["state"].items():
+        np.testing.assert_array_equal(r1["loop_no_mesh"]["state"][k], v,
+                                      err_msg=k)
+    job = two_ranks["job"]
+    assert r0["loop_no_mesh"]["saved"] == [job["ckpt_no_mesh"]]
+    assert r0["loop_mesh"]["saved"] == [job["ckpt_mesh"]]
+    assert r1["loop_no_mesh"]["saved"] == [] == r1["loop_mesh"]["saved"]
+    assert os.listdir(job["ckpt_no_mesh"])
 
 
 def test_cli_pseudo_model_parallel_matches_single_process(two_ranks):

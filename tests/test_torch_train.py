@@ -3,7 +3,9 @@ one perturbed flax variable tree: the train-mode forward (channel-major
 logits and the updated BatchNorm statistics), the loss and every gradient
 at init, 3 SGD and 2 AdamW steps through `make_train_step(augment=False)`
 (loss per step, then parameters and BatchNorm statistics after each
-step), one step of each at a weight decay large enough to show, the eval step's confusion matrix and mIoU, and the RGB-D model.
+step), one step of each at a weight decay large enough to show, the eval step's confusion matrix and mIoU, the RGB-D model, and one bf16 SGD
+step of ESPNetv2 and of DeepLab, each framework's against the port's f64
+step.
 
 Parameters and gradients are compared in the flax layout: a JAX tree
 (the new state, or the gradients as a "params" tree) is loaded into a
@@ -460,3 +462,116 @@ def test_deeplab_sgd_step_matches_jax(batch):
     for name, (norm_gap, elem_gap) in _update_gaps(port, ref, start).items():
         assert norm_gap <= 2e-2 and elem_gap <= 0.1, (name, norm_gap,
                                                       elem_gap)
+
+
+def _stat_gaps(a, b):
+    """The largest running-mean gap (absolute) and running-variance gap
+    (relative) of model `a` against model `b`."""
+    ref = dict(b.named_buffers())
+    mean = var = 0.0
+    for name, t in a.named_buffers():
+        r = ref[name].double()
+        if name.endswith("running_mean"):
+            mean = max(mean, (t.double() - r).abs().max().item())
+        elif name.endswith("running_var"):
+            var = max(var, ((t.double() - r).abs() / r.abs()).max().item())
+    return mean, var
+
+
+def _update_gap(a, b, start, only=None):
+    """|a's parameters - b's| over |b's update from `start`|, in norm over
+    every parameter (or those whose name holds `only`)."""
+    ref = dict(b.named_parameters())
+    num = den = 0.0
+    for name, t in a.named_parameters():
+        if only is not None and only not in name:
+            continue
+        r = ref[name].detach().double()
+        num += ((t.detach().double() - r) ** 2).sum().item()
+        den += ((r - start[name].double()) ** 2).sum().item()
+    return (num / den) ** 0.5
+
+
+# One bf16 SGD step (bf16 activations, f32 parameters and statistics), the
+# port's and the JAX package's, each against the port's step in f64: for
+# each quantity the bounds (port, JAX), the two bf16 steps within their
+# sum.  Measured on this step (the same at 1, 2, 4 and 8 threads), port
+# and JAX: ESPNetv2 loss 2.1e-4 and 9.8e-4 relative, running means 5.2e-3
+# and 4.3e-3, running variances 5.2e-2 and 4.4e-2 relative, the update over
+# the whole model 2.15 and 1.11 of the f64 update's norm, the classifier's
+# 0.056 and 0.101; DeepLab 1.6e-3 and 4.8e-4, 5.8e-3 and 3.8e-3, 7.4e-2
+# and 6.2e-2, 0.95 and 0.99, 0.038 and 0.043.  bf16 rounds the activations
+# and their gradients to 8 bits: at init the deep gradients are mostly
+# rounding (a bf16 step and the f64 step move the encoder's weights in
+# directions with a cosine of ~0.3), so only the loss, the statistics and
+# the classifier's update, which the logits' gradient sets directly, carry
+# a tight bound; the whole update's bound says that neither step runs
+# away.
+BF16_BOUNDS = {
+    "espnetv2": dict(loss=(5e-4, 2e-3), mean=(1e-2, 1e-2), var=(0.1, 0.1),
+                     update=(4.0, 2.2), classifier=(0.12, 0.2)),
+    "deeplab": dict(loss=(3e-3, 1e-3), mean=(1.2e-2, 8e-3),
+                    var=(0.15, 0.12), update=(2.0, 2.0),
+                    classifier=(0.08, 0.09)),
+}
+
+
+@pytest.mark.usefixtures("_two_threads")
+@pytest.mark.parametrize("name", sorted(BF16_BOUNDS))
+def test_bf16_sgd_step_matches_jax_within_rounding(name):
+    """One SGD step of a bf16 model (`compute_dtype` bfloat16, the CLI's
+    `--bf16`) through `make_train_step(augment=False)`: the port's and the
+    JAX package's each within `BF16_BOUNDS` of the port's f64 step, and
+    the two within the sum of their bounds."""
+    if name == "espnetv2":
+        kw, classifier = MODEL_KW, "bu_dec_l4.classify"
+        model = FlaxESPNetv2(num_classes=CLASSES, channel_major_logits=True,
+                             compute_dtype=jnp.bfloat16, **kw)
+        port = ESPNetv2Segmentation(CLASSES, compute_dtype=torch.bfloat16,
+                                    **kw)
+        seed = 11
+    else:
+        kw, classifier = dict(stage_blocks=(1, 1, 1, 1),
+                              aspp_features=16), "classifier"
+        model = FlaxDeepLab(num_classes=CLASSES, compute_dtype=jnp.bfloat16,
+                            **kw)
+        port = DeepLabV3(CLASSES, compute_dtype=torch.bfloat16, **kw)
+        seed = 14
+    variables = flax_variables(model, HW, seed=seed)
+    batches = _batches(1)
+    labels = batches[0]["label"]
+    cw = compute_class_weights(np.bincount(labels[labels != 255],
+                                           minlength=CLASSES))
+    (want_loss, want_tree), = _trajectory(model, variables, batches, cw,
+                                          SGD_SCHEDULE, "sgd", 1)
+    load_flax_variables(port, variables)
+    start = {n: t.detach().clone() for n, t in port.named_parameters()}
+    sched = build_schedule(SGD_SCHEDULE["name"], SGD_SCHEDULE["base_lr"],
+                           SGD_SCHEDULE["total_steps"], max_lr=0.01,
+                           cycle_epochs=3)
+    state = create_train_state(port, "sgd", sched, device="cpu")
+    step = make_train_step(port, class_weights=cw, augment=False,
+                           device="cpu")
+    wide, wide_step = _f64_twin(state, "sgd", cw)
+    state, metrics = step(state, batches[0])
+    _, wide_metrics = wide_step(wide, batches[0])
+    ref = _flax_layout(want_tree, port)
+    f64 = wide_metrics["loss"].item()
+    loss_p, loss_j = metrics["loss"].item(), want_loss
+    gaps = {
+        "loss": (abs(loss_p - f64) / f64, abs(loss_j - f64) / f64,
+                 abs(loss_p - loss_j) / f64),
+        "update": (_update_gap(port, wide.model, start),
+                   _update_gap(ref, wide.model, start),
+                   _update_gap(port, ref, start)),
+        "classifier": (_update_gap(port, wide.model, start, classifier),
+                       _update_gap(ref, wide.model, start, classifier),
+                       _update_gap(port, ref, start, classifier)),
+    }
+    stats = (_stat_gaps(port, wide.model), _stat_gaps(ref, wide.model),
+             _stat_gaps(port, ref))
+    gaps["mean"] = tuple(s[0] for s in stats)
+    gaps["var"] = tuple(s[1] for s in stats)
+    for what, (bp, bj) in BF16_BOUNDS[name].items():
+        gp, gj, gpj = gaps[what]
+        assert gp <= bp and gj <= bj and gpj <= bp + bj, (what, gaps[what])

@@ -17,7 +17,9 @@ import torch
 from mspl_tpu.data.transforms import normalize as jax_normalize
 from mspl_tpu.data.transforms import random_scale_crop_flip as jax_rscf
 from mspl_tpu.data.transforms import train_transform as jax_train_transform
+import mspl_tpu_torch.data.transforms as port_transforms
 from mspl_tpu_torch.data.transforms import (draw_scale_crop_flip, normalize,
+                                            random_scale_crop_flip,
                                             scale_crop_flip, train_transform)
 
 SCALE_RANGE = (0.5, 2.0)
@@ -158,3 +160,48 @@ def test_train_transform_is_the_core_at_its_draws():
     want = scale_crop_flip(normalize(imgs), labels, crop, *draws)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert got[0].dtype == torch.float32 and got[1].dtype == labels.dtype
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_random_scale_crop_flip_matches_jax_at_its_key(name, monkeypatch):
+    """The per-image function against the reference's at a key: the port's
+    draw, patched to return that key's draws, then its core on a batch of
+    one; a [C, H, W] image and an [H, W] label in, one crop out."""
+    hw, crop, channels, pred = CASES[name]
+    key = _key_where(pred, hw, crop)
+    imgs, labels = _case(10 + list(CASES).index(name), hw, channels)
+    x = jax_normalize(jnp.asarray(imgs[0]))
+    want_img, want_lab = jax_rscf(x, jnp.asarray(labels[0]), crop, key,
+                                  SCALE_RANGE, ignore_label=250)
+    draws = jax_draws(key, hw, crop)
+
+    def key_draws(n, in_hw, crop_hw, generator, scale_range):
+        assert (n, in_hw, crop_hw, scale_range) == (1, hw, crop,
+                                                    SCALE_RANGE)
+        return tuple(torch.from_numpy(np.asarray([v])) for v in draws)
+
+    monkeypatch.setattr(port_transforms, "draw_scale_crop_flip", key_draws)
+    got_img, got_lab = random_scale_crop_flip(
+        normalize(torch.from_numpy(imgs))[0], torch.from_numpy(labels[0]),
+        crop, torch.Generator(), SCALE_RANGE, ignore_label=250)
+    assert got_img.shape == (channels, *crop) and got_lab.shape == crop
+    np.testing.assert_allclose(got_img.permute(1, 2, 0).numpy(),
+                               np.asarray(want_img), rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got_lab.numpy(), np.asarray(want_lab))
+
+
+def test_random_scale_crop_flip_is_the_core_at_its_draws():
+    """From a generator: the core at the draws the same generator state
+    gives, the label dtype kept."""
+    hw, crop = (32, 48), (24, 40)
+    rng = np.random.default_rng(14)
+    img = normalize(torch.from_numpy(rng.integers(0, 256, (1, *hw, 3),
+                                                  dtype=np.uint8)))[0]
+    label = torch.from_numpy(rng.integers(0, 5, hw).astype(np.int64))
+    got = random_scale_crop_flip(img, label, crop,
+                                 torch.Generator().manual_seed(4))
+    draws = draw_scale_crop_flip(1, hw, crop,
+                                 torch.Generator().manual_seed(4))
+    want = scale_crop_flip(img[None], label[None], crop, *draws)
+    assert torch.equal(got[0], want[0][0]) and torch.equal(got[1], want[1][0])
+    assert got[1].dtype == torch.int64

@@ -257,12 +257,46 @@ class ClassSet:
         return self.images[i], self.labels[i]
 
 
+def _segmentation_loop(job, mesh, ckpt_dir):
+    """`train_segmentation` for one epoch (augmented, 2 global batches of
+    4) with `ckpt_dir`, the directories this rank's calls of
+    `save_checkpoint` wrote to recorded."""
+    import mspl_tpu_torch.engine.train as train_mod
+    from mspl_tpu_torch.data.loader import DataLoader
+
+    model = espnet(job["classes"], job["variables"])
+    data = Images(job["loop_images"], job["loop_labels"])
+    saved = []
+    real = train_mod.save_checkpoint
+
+    def recording(path, *args, **kw):
+        saved.append(path)
+        return real(path, *args, **kw)
+
+    train_mod.save_checkpoint = recording
+    try:
+        res = train_mod.train_segmentation(
+            model, None, DataLoader(data, 4, shuffle=True, seed=2,
+                                    num_workers=1),
+            DataLoader(data, 4, num_workers=1), job["classes"],
+            train_mod.TrainLoopConfig(epochs=1, crop_hw=job["crop"],
+                                      lr=0.01, ckpt_dir=ckpt_dir,
+                                      verbose=False),
+            mesh=mesh, device="cpu")
+    finally:
+        train_mod.save_checkpoint = real
+    return dict(history=[(h["loss"], h["miou"]) for h in res["history"]],
+                best=res["best_miou"], state=state_numpy(model), saved=saved)
+
+
 def train_cases(rank, world, job):
     """Synced BatchNorm (global and ghost groups), the loss, SGD steps
     without and with augmentation, `evaluate`, `train_classification` and
-    the CLI's `pseudo --model-parallel 2`, at data 2 over 2 ranks."""
+    the CLI's `pseudo --model-parallel 2`, at data 2 over 2 ranks; then
+    `train_segmentation` and `train_classification` without a mesh and
+    with the explicit `make_mesh_for_batch` mesh."""
     from mspl_tpu_torch.cli import main
-    from mspl_tpu_torch.parallel.mesh import make_mesh
+    from mspl_tpu_torch.parallel.mesh import make_mesh, make_mesh_for_batch
 
     mesh = make_mesh(data=2)
     out = {f"bn_{name}": _bn_case(case, mesh, groups)
@@ -272,6 +306,10 @@ def train_cases(rank, world, job):
     out["steps_augment"] = _steps(job, mesh, augment=True)
     out["evaluate"] = _evaluate(job, mesh)
     out["classification"] = _classification(job, mesh)
+    out["classification_no_mesh"] = _classification(job, None)
+    out["loop_no_mesh"] = _segmentation_loop(job, None, job["ckpt_no_mesh"])
+    out["loop_mesh"] = _segmentation_loop(job, make_mesh_for_batch(4),
+                                          job["ckpt_mesh"])
     cli = main(job["cli_argv"] + ["--model-parallel", "2"], device="cpu")
     out["cli"] = {"kc": cli["kc"], "kept": cli["kept"], "n": cli["n"]}
     return out
