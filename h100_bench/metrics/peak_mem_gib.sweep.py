@@ -1,0 +1,5 @@
+"""`max_memory_allocated` over the window, after a reset at its start."""
+
+
+def read(r):
+    return r.peak_bytes / 2 ** 30 if r.peak_bytes else None

@@ -1,0 +1,7 @@
+"""Kernel ②'s share of its roofline over all its profiled calls."""
+
+from h100_bench.layers_read import roofline_share
+
+
+def read(r):
+    return roofline_share(r, "pyr_pool_fused_eval")
