@@ -1,11 +1,12 @@
 """Host-side batching / prefetching loader (port of mspl_tpu/data/loader.py).
 
 A thread pool decodes samples and a bounded queue keeps `prefetch` batches
-ready, so host decode overlaps device compute.  Yields dicts: image uint8
-[B,H,W,C], label int32 [B,H,W], index int32 [B], valid bool [B].  Only the
-tail batch is padded, always as a suffix (its last item repeated, with
-valid=False), so the valid rows of every batch are a prefix —
-`PseudoLabelGenerator(return_device=True)` relies on that.
+ready, so host decode overlaps device compute; the caller's wait for a
+batch is the span `mspl.loader.wait` (`utils/profiling.py`).  Yields
+dicts: image uint8 [B,H,W,C], label int32 [B,H,W], index int32 [B], valid
+bool [B].  Only the tail batch is padded, always as a suffix (its last
+item repeated, with valid=False), so the valid rows of every batch are a
+prefix — `PseudoLabelGenerator(return_device=True)` relies on that.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator
 
 import numpy as np
+
+from mspl_tpu_torch.utils.profiling import span
 
 
 class DataLoader:
@@ -103,15 +106,13 @@ class DataLoader:
                         q.put(e)
                         return
                     q.put(batch)
-            q.put(None)
 
         t = threading.Thread(target=producer, daemon=True)
         t.start()
         try:
-            while True:
-                item = q.get()
-                if item is None:
-                    return
+            for _ in range(start_batch, n_batches):
+                with span("mspl.loader.wait"):
+                    item = q.get()
                 if isinstance(item, Exception):
                     raise item
                 yield item

@@ -96,6 +96,7 @@ from mspl_tpu_torch.utils.flax_bridge import (flax_variables,
                                               to_port)
 from mspl_tpu_torch.utils.print_utils import (print_info_message,
                                               print_log_message)
+from mspl_tpu_torch.utils.profiling import span
 from mspl_tpu_torch.utils.tb_logger import ScalarLogger
 
 def build_optimizer(name: str, params: Iterable[torch.Tensor],
@@ -301,7 +302,11 @@ def make_train_step(model: nn.Module,
     the mesh: the step takes this rank's data slice of it and runs the
     module docstring's data-parallel step; the loss returned is the
     global batch's.  `bn_groups` > 1 must then be a multiple of the data
-    axis."""
+    axis.
+
+    Under a profiler each phase of the step is a span: `mspl.train.upload`,
+    `.augment`, `.forward`, `.loss`, `.backward` and `.optimizer`
+    (`utils/profiling.py`)."""
     if augment and crop_hw is None:
         raise ValueError("augment=True needs crop_hw")
     group, sync = data_axis(mesh)
@@ -325,31 +330,39 @@ def make_train_step(model: nn.Module,
             raise ValueError("the state holds another model than the step")
         model.train()
         batch, rows = data_rows(batch, mesh)
-        imgs, labels = _on(batch, "image", device), _on(batch, "label",
-                                                        device)
-        if augment:
-            imgs, labels = train_transform(
-                imgs, labels, crop_hw,
-                rng if rng is not None else step_generator(0, state.step),
-                scale_range, rows=rows, **norm_kw)
-        else:
-            imgs = normalize(imgs, **norm_kw)
+        with span("mspl.train.upload"):
+            imgs = _on(batch, "image", device)
+            labels = _on(batch, "label", device)
+            valid = _on(batch, "valid", device)
+        with span("mspl.train.augment"):
+            if augment:
+                draws = rng if rng is not None else step_generator(
+                    0, state.step)
+                imgs, labels = train_transform(imgs, labels, crop_hw, draws,
+                                               scale_range, rows=rows,
+                                               **norm_kw)
+            else:
+                imgs = normalize(imgs, **norm_kw)
         state.optimizer.zero_grad(set_to_none=True)
         with _bn_context(bn_groups, sync):
-            logits = forward(imgs)
-            loss = segmentation_loss(
-                logits, labels, class_weights=cw, reg_mode=reg_mode,
-                reg_weight=reg_weight,
-                batch_mask=_on(batch, "valid", device), group=group)
-            loss.backward()
+            with span("mspl.train.forward"):
+                logits = forward(imgs)
+            with span("mspl.train.loss"):
+                loss = segmentation_loss(
+                    logits, labels, class_weights=cw, reg_mode=reg_mode,
+                    reg_weight=reg_weight, batch_mask=valid, group=group)
+            with span("mspl.train.backward"):
+                loss.backward()
+                if mesh is not None:
+                    sum_grads(model.parameters(), group)
         loss = loss.detach()
         if mesh is not None:
-            sum_grads(model.parameters(), group)
             loss = psum(loss.clone(), mesh)
-        lr = state.schedule(state.step)
-        for pg in state.optimizer.param_groups:
-            pg["lr"] = lr
-        state.optimizer.step()
+        with span("mspl.train.optimizer"):
+            lr = state.schedule(state.step)
+            for pg in state.optimizer.param_groups:
+                pg["lr"] = lr
+            state.optimizer.step()
         state.step += 1
         return state, {"loss": loss}
 

@@ -58,6 +58,7 @@ from mspl_tpu_torch.ops.resize import resize_bilinear_cm
 from mspl_tpu_torch.parallel.mesh import (Mesh, gather_rows, psum,
                                           replicate, shard_batch)
 from mspl_tpu_torch.utils.flax_bridge import load_flax_variables
+from mspl_tpu_torch.utils.profiling import span
 from mspl_tpu_torch.utils.registry import IGNORE_LABEL
 
 
@@ -178,7 +179,10 @@ class PseudoLabelGenerator:
     compute dtype, N forwards, the fused pass.  Labels leave the device as
     uint8 (the host re-widens them to int32).  One batch of host-to-device
     lookahead overlaps the next batch's upload with this batch's compute.
-    Under a mesh a rank moves to its device only the sources it runs."""
+    Under a mesh a rank moves to its device only the sources it runs.
+    Under a profiler the upload is the span `mspl.generate.put` and each
+    source's forward `mspl.generate.model:<its name>`
+    (`utils/profiling.py`)."""
 
     def __init__(
         self,
@@ -207,6 +211,8 @@ class PseudoLabelGenerator:
             raise ValueError("all sources must agree on channel_major")
         self.device = torch.device(device)
         self.sources = list(sources)
+        self.span_names = [f"mspl.generate.model:{s.name}"
+                           for s in self.sources]
         self.mesh = mesh
         # the sources this rank runs: all of them, those of its model
         # slice, or none outside the mesh
@@ -247,7 +253,10 @@ class PseudoLabelGenerator:
         imgs = self.normalize_fn(imgs_u8)
         if self.common_dtype is not None:
             imgs = imgs.to(self.common_dtype)
-        logits = [s(imgs) for s in self.sources]
+        logits = []
+        for s, name in zip(self.sources, self.span_names):
+            with span(name):
+                logits.append(s(imgs))
         if self.channel_major:
             lab, conf = fused_pseudo_cm(
                 logits, self.conversions, self.kc, mode=self.mode,
@@ -281,7 +290,8 @@ class PseudoLabelGenerator:
                           device=self.device)
         for i in self.mine:
             s = self.sources[i]
-            lg = s(imgs)
+            with span(self.span_names[i]):
+                lg = s(imgs)
             if s.channel_major:
                 lg = lg.permute(0, 2, 3, 1)
             acc = acc + fusion_term(lg, self.conversions[i], self.mode)
@@ -313,15 +323,16 @@ class PseudoLabelGenerator:
     def _put(self, batch) -> Optional[torch.Tensor]:
         """The batch's images on the device: under a mesh this rank's data
         slice of them, None outside the mesh."""
-        images = batch["image"]
-        if self.mesh is not None:
-            if self.mesh.coords is None:
-                return None
-            images = shard_batch({"image": images}, self.mesh)["image"]
-        host = torch.from_numpy(np.ascontiguousarray(images))
-        if self.device.type == "cuda":
-            return host.pin_memory().to(self.device, non_blocking=True)
-        return host.to(self.device)
+        if self.mesh is not None and self.mesh.coords is None:
+            return None
+        with span("mspl.generate.put"):
+            images = batch["image"]
+            if self.mesh is not None:
+                images = shard_batch({"image": images}, self.mesh)["image"]
+            host = torch.from_numpy(np.ascontiguousarray(images))
+            if self.device.type == "cuda":
+                return host.pin_memory().to(self.device, non_blocking=True)
+            return host.to(self.device)
 
     def _prefetched(self, loader):
         """(host_batch, device_images) with one batch of lookahead: batch

@@ -8,6 +8,40 @@
 * `trace`: a context manager that writes a `torch.profiler` trace of the
   code in it, which TensorBoard's profiler plugin and chrome://tracing
   read.
+* `span`: the port's own named ranges, recorded only while a
+  `torch.profiler` runs (its `record_function` events); otherwise one
+  shared no-op context, behind a check of about 0.1 us.
+
+The spans, each opened on the calling thread where its work happens and
+none around a whole sweep or step (so that a device-idle gap is named by
+the phase the host was in, not by what encloses every phase):
+
+    mspl.loader.wait          the caller's wait for the loader's producer
+                              thread (`DataLoader.iter_batches`, around
+                              its queue's get only)
+    mspl.generate.put         pinning a sweep's batch and issuing its
+                              upload (`PseudoLabelGenerator._put`)
+    mspl.generate.model:<n>   the host's issue of source <n>'s forward
+                              (`batch_pass`, `model_axis_pass`)
+    mspl.cbst.histograms      `class_confidence_histograms`
+    mspl.cbst.kc              `kc_from_histograms` (its host read)
+    mspl.cbst.sweep_kc        `sweep_kc`
+    mspl.cbst.apply_kc        `apply_kc_device`
+    mspl.train.upload         the train step's image, label and valid
+                              copies to the device
+    mspl.train.augment        `train_transform` or `normalize`
+    mspl.train.forward        the model's train forward
+    mspl.train.loss           `segmentation_loss`
+    mspl.train.backward       `loss.backward()` (and the gradient sum
+                              under a mesh)
+    mspl.train.optimizer      the learning-rate set and `optimizer.step()`
+
+Wrapping a sweep or a fine-tune in `trace(dir)` records them beside the
+CUDA kernels, on the profiler's one clock, so TensorBoard's trace view
+shows which phase of the host each idle stretch of the card falls in:
+
+    with profiling.trace("runs/profile"):
+        gen(loader, return_device=True)
 
 The JAX package's `start_profiler_server` has no counterpart:
 `torch.profiler` has no server that a profiler client attaches to over
@@ -25,8 +59,11 @@ from typing import Dict, Iterator, List, Mapping
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.autograd.profiler import record_function
 
 from mspl_tpu_torch.layers.stacking import flatten_tree
+
+_OFF = contextlib.nullcontext()
 
 
 def model_parameters(params) -> int:
@@ -131,3 +168,13 @@ def trace(log_dir: str):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
         yield prof
+
+
+def span(name: str):
+    """A `record_function` range named `name` while a `torch.profiler`
+    runs, else one shared no-op context: with tracing off a span costs
+    the profiler-state check and nothing more.  Names start with
+    `mspl.` (module docstring)."""
+    if torch._C._autograd._profiler_enabled():
+        return record_function(name)
+    return _OFF
