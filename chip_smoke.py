@@ -1337,7 +1337,9 @@ def swapped(swaps):
 
 
 def plain_kernels():
-    """Route the model and the engine through the plain versions by name."""
+    """Route the model and the engine through the plain versions by name,
+    with every source's forward eager (a generator's CUDA graph would
+    replay the kernels it captured)."""
     import mspl_tpu_torch.layers.eesp as le
     import mspl_tpu_torch.layers.pyramid_pool as pp
     import mspl_tpu_torch.models.espnetv2 as me
@@ -1350,7 +1352,8 @@ def plain_kernels():
              (me, "eesp_stage_fused_eval",
               eesp_stage.eesp_stage_fused_eval_plain),
              (generate, "fused_pseudo_pass_pm",
-              pseudo.fused_pseudo_pass_plain)]
+              pseudo.fused_pseudo_pass_plain),
+             (generate, "_graphable", lambda imgs: False)]
     return swapped(swaps)
 
 

@@ -23,6 +23,8 @@ the phase the host was in, not by what encloses every phase):
                               upload (`PseudoLabelGenerator._put`)
     mspl.generate.model:<n>   the host's issue of source <n>'s forward
                               (`batch_pass`, `model_axis_pass`)
+    mspl.generate.replay:<n>  inside it, the replay of that forward's
+                              CUDA graph (`PseudoLabelGenerator._forward`)
     mspl.cbst.histograms      `class_confidence_histograms`
     mspl.cbst.kc              `kc_from_histograms` (its host read)
     mspl.cbst.sweep_kc        `sweep_kc`
