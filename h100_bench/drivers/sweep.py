@@ -200,7 +200,7 @@ def run(cell: common.Cell, seed: int, seconds: float, trace: bool,
     from mspl_tpu_torch.data.loader import DataLoader
 
     from h100_bench import layers_read
-    from h100_bench.trace import Profiled, Spans, breakdown
+    from h100_bench.trace import Profiled, breakdown
 
     tr = cell.traffic
     clock = common.Clock(device)
@@ -224,9 +224,6 @@ def run(cell: common.Cell, seed: int, seconds: float, trace: bool,
         return labels, confs, (kc, hist), thr
 
     sweep([])  # every shape of the window, once
-    spans = Spans()
-    if trace:
-        program.register_spans([s.model for s in gen.sources], spans)
     rng = np.random.default_rng(common.sub_seed(seed, 3))
     for fn in counters.values():
         fn.launches = 0
@@ -261,7 +258,6 @@ def run(cell: common.Cell, seed: int, seconds: float, trace: bool,
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
     launches = {k: fn.launches for k, fn in counters.items()}
-    spans.remove()
     sweeps = len(cbsts)
     batch_ms = common.intervals_ms(clock, [start] + [m for d in done
                                                      for m in d])

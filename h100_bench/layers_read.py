@@ -16,7 +16,7 @@ import torch
 
 from h100_bench import common
 from h100_bench.roofline import peaks
-from h100_bench.roofline.shapes import Model
+from h100_bench.roofline.shapes import Model, model_key
 from h100_bench.trace import TraceView
 
 
@@ -40,8 +40,7 @@ class Reading:
 
     def models(self) -> List[Model]:
         return [Model(m.classes, torch.tensor([], dtype=m.dtype)
-                      .element_size(), m.model["name"] == "espnetv2",
-                      m.model.get("dec_base_planes", 16))
+                      .element_size(), model_key(m.model))
                 for m in self.members]
 
 
@@ -58,16 +57,19 @@ def roofline_share(r: Reading, kernel: str) -> Optional[float]:
 
 
 @lru_cache(maxsize=None)
-def _conv_flops(model_key, classes: int, dtype: str, batch: int,
+def _conv_flops(key, classes: int, dtype: str, batch: int,
                 hw: Tuple[int, int], train: bool) -> float:
-    """Convolution FLOPs (2 a multiply-add) of the reference model at these
+    """Dense FLOPs (2 a multiply-add) of the reference model at these
     shapes, counted on meta tensors: an eval forward, or a train forward
-    and backward."""
+    and backward.  The FLOP counter's ops whose names hold one of the
+    model file's `DENSE_OPS` count ("convolution": the convolutions and
+    their backward; "mm": mm, addmm, bmm, baddbmm)."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from h100_bench.reference.pipeline import build_model
+    from h100_bench.reference.pipeline import build_model, model_module
 
-    spec = dict(model_key)
+    spec = dict(key)
+    families = model_module(spec["name"]).DENSE_OPS
     with torch.device("meta"):
         model = build_model(spec, classes, common.DTYPES[dtype])
         model.train(train)
@@ -81,19 +83,17 @@ def _conv_flops(model_key, classes: int, dtype: str, batch: int,
                 model(x)
     counts = counter.get_flop_counts()["Global"]
     return float(sum(v for k, v in counts.items()
-                     if "convolution" in str(k)))
+                     if any(f in str(k) for f in families)))
 
 
 def least_seconds(r: Reading) -> float:
     """The least time at the card's dense peaks for the profiled units:
-    each model's convolution FLOPs over the peak of its dtype."""
+    each model's dense FLOPs over the peak of its dtype."""
     total = 0.0
     for m in r.members:
         dtype = str(m.dtype).split(".")[-1]
-        flops = _conv_flops(tuple(sorted((k, tuple(v) if isinstance(v, list)
-                                          else v)
-                                         for k, v in m.model.items())),
-                            m.classes, dtype, r.batch, tuple(r.hw), r.train)
+        flops = _conv_flops(model_key(m.model), m.classes, dtype, r.batch,
+                            tuple(r.hw), r.train)
         total += flops * r.units / peaks.DENSE_PEAK[dtype]
     return total
 

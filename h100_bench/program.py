@@ -45,23 +45,3 @@ def launch_counters(names) -> Dict:
             f"mspl_tpu_torch.ops.{mod}"), fn)
     return out
 
-
-def encoder_parts(m):
-    """The modules that the model calls for its encoder: DeepLab calls its
-    `encoder`; ESPNetv2 calls `base_net.encode`, which calls each stage
-    (forward hooks fire only on a module's call)."""
-    if not hasattr(m, "base_net"):
-        return [m.encoder]
-    parts = []
-    for child in m.base_net.children():
-        parts += list(child) if isinstance(child, torch.nn.ModuleList) \
-            else [child]
-    return parts
-
-
-def register_spans(models, spans) -> None:
-    """A span on each model and on the parts of its encoder."""
-    for m in models:
-        spans.wrap(m, "model")
-        for part in encoder_parts(m):
-            spans.wrap(part, "encoder")

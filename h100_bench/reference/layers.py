@@ -6,12 +6,13 @@ resize and adaptive average pool, the depthwise pyramid branches), kept
 here so that a later change to the port cannot move the yardstick.  It
 imports nothing of the port.
 
-Every convolution goes through a `Numerics` object that the model is built
-with: `Numerics()` computes in the activation's dtype, as the port does;
-`FP8Numerics()` rounds both operands of every convolution to float8 e4m3
-with a per-tensor scale first, the precision below bf16 that the bf16
-models' control runs in; `TF32Numerics()` rounds them to TF32, the one
-below f32.
+Every convolution, linear layer and matrix product (attention's two) goes
+through a `Numerics` object that the model is built with: `Numerics()`
+computes in the activation's dtype, as the port does; `FP8Numerics()`
+rounds both operands of each to float8 e4m3 with a per-tensor scale
+first, the precision below bf16 that the bf16 models' control runs in;
+`TF32Numerics()` rounds them to TF32, the one below f32.  A bias is added
+as it is.
 """
 
 from __future__ import annotations
@@ -30,13 +31,23 @@ FP8_MAX = 448.0  # the largest float8 e4m3 value
 
 
 class Numerics:
-    """Convolutions in the activation's dtype."""
+    """Convolutions, linear layers and matrix products in the activation's
+    dtype."""
 
     def conv(self, x, w, bias=None, stride=1, padding=0, dilation=1,
              groups=1):
         b = None if bias is None else bias.to(x.dtype)
         return F.conv2d(x, w.to(x.dtype), b, stride, padding, dilation,
                         groups)
+
+    def linear(self, x, w, bias=None):
+        """x @ w.T + bias over x's last axis."""
+        b = None if bias is None else bias.to(x.dtype)
+        return F.linear(x, w.to(x.dtype), b)
+
+    def matmul(self, a, b):
+        """a @ b, batched over the leading axes."""
+        return torch.matmul(a, b.to(a.dtype))
 
 
 def fp8_round(t: torch.Tensor) -> torch.Tensor:
@@ -49,12 +60,19 @@ def fp8_round(t: torch.Tensor) -> torch.Tensor:
 
 
 class FP8Numerics(Numerics):
-    """Convolutions whose input and weight are rounded to float8 e4m3."""
+    """Convolutions, linear layers and matrix products whose two operands
+    are rounded to float8 e4m3."""
 
     def conv(self, x, w, bias=None, stride=1, padding=0, dilation=1,
              groups=1):
         return super().conv(fp8_round(x), fp8_round(w.to(x.dtype)), bias,
                             stride, padding, dilation, groups)
+
+    def linear(self, x, w, bias=None):
+        return super().linear(fp8_round(x), fp8_round(w.to(x.dtype)), bias)
+
+    def matmul(self, a, b):
+        return super().matmul(fp8_round(a), fp8_round(b.to(a.dtype)))
 
 
 def _tf32_bits(t: torch.Tensor) -> torch.Tensor:
@@ -81,13 +99,20 @@ def tf32_round(t: torch.Tensor) -> torch.Tensor:
 
 
 class TF32Numerics(Numerics):
-    """Convolutions whose f32 input and weight are rounded to TF32, the
-    precision below f32 that the f32 cells' control runs in."""
+    """Convolutions, linear layers and matrix products whose two f32
+    operands are rounded to TF32, the precision below f32 that the f32
+    cells' control runs in."""
 
     def conv(self, x, w, bias=None, stride=1, padding=0, dilation=1,
              groups=1):
         return super().conv(tf32_round(x), tf32_round(w.float()), bias,
                             stride, padding, dilation, groups)
+
+    def linear(self, x, w, bias=None):
+        return super().linear(tf32_round(x), tf32_round(w.float()), bias)
+
+    def matmul(self, a, b):
+        return super().matmul(tf32_round(a), tf32_round(b.float()))
 
 
 PLAIN = Numerics()

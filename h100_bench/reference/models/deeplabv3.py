@@ -12,11 +12,14 @@ Module names are the port's, so one state dict loads into both.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from h100_bench.reference.layers import PLAIN, BatchNorm, resize_bilinear
+from h100_bench.weights import TRUNC_STD, fan_in, fixed
 
 
 class Conv(nn.Conv2d):
@@ -129,3 +132,22 @@ class DeepLabV3(nn.Module):
         c = self.classifier
         y = self.num.conv(y, c.weight, c.bias)
         return resize_bilinear(y, (x.shape[2], x.shape[3]))
+
+
+MODEL = DeepLabV3
+# the FLOP counter's ops that the whole step's share counts: the
+# convolutions (their backward too); the resizes' einsums stand for the
+# port's F.interpolate, which does no dense products
+DENSE_OPS = ("convolution",)
+
+
+def weight_law(name: str, shape):
+    """Convolutions from a normal cut at 2 std, at variance 2 / fan_in (the
+    classifier 1 / fan_in), BatchNorm scales 1."""
+    law = fixed(name)
+    if law is not None:
+        return law
+    if len(shape) == 4:
+        scale = 1.0 if name.startswith("classifier.") else 2.0
+        return "trunc", math.sqrt(scale / fan_in(shape)) / TRUNC_STD
+    return "const", 1.0  # BatchNorm scale

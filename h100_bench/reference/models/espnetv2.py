@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from h100_bench.reference.layers import (BR, C, CB, CBR, PLAIN, PReLU,
                                          channel_shuffle, pyr_branches,
                                          resize_bilinear)
+from h100_bench.weights import fan_in, fixed
 
 SCALES = (2.0, 1.5, 1.0, 0.5, 0.1)
 _STAGE_K = (4, 4, 4, 4, 4)
@@ -214,3 +215,25 @@ class ESPNetv2Segmentation(nn.Module):
         out = self.bu_dec_l4(self.merge_l4(l1), pre=out)
         return resize_bilinear(out.float(), (x.shape[2], x.shape[3])
                                ).to(out.dtype)
+
+
+MODEL = ESPNetv2Segmentation
+# the FLOP counter's ops that the whole step's share counts: the
+# convolutions (their backward too); the resizes' and pools' einsums stand
+# for the port's kernel ④ and F.interpolate, which do no dense products
+DENSE_OPS = ("convolution",)
+
+
+def weight_law(name: str, shape):
+    """He-normal convolutions (std sqrt(2 / fan_in); the pyramid's
+    depthwise taps at fan-in 9), PReLU alphas 0.25, BatchNorm scales 1."""
+    law = fixed(name)
+    if law is not None:
+        return law
+    if name.endswith("dw_weights"):
+        return "normal", math.sqrt(2.0 / 9.0)
+    if len(shape) == 4:
+        return "normal", math.sqrt(2.0 / fan_in(shape))
+    if name.rsplit(".", 1)[-1] == "alpha":
+        return "const", 0.25
+    return "const", 1.0  # BatchNorm scale

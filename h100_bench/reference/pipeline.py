@@ -13,14 +13,15 @@ the data sets' published ones.  Imports nothing of the port.
 
 from __future__ import annotations
 
+import importlib
+from pathlib import Path
+from types import ModuleType
 from typing import Dict, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from h100_bench.reference.deeplab import DeepLabV3
-from h100_bench.reference.espnetv2 import ESPNetv2Segmentation
 from h100_bench.reference.layers import PLAIN
 
 IGNORE = 255
@@ -53,7 +54,18 @@ def conversion(dataset: str, num_target: int = 3) -> np.ndarray:
     return mat
 
 
-MODELS = {"espnetv2": ESPNetv2Segmentation, "deeplabv3": DeepLabV3}
+MODELS_DIR = Path(__file__).resolve().parent / "models"
+
+
+def model_module(name: str) -> ModuleType:
+    """The reference model file `models/<name>.py` of a configuration's
+    `model` name: `MODEL`, its class; `weight_law(leaf, shape)`, each
+    leaf's law (`weights.py`); `DENSE_OPS`, the FLOP counter's op families
+    that the whole step's share counts."""
+    path = MODELS_DIR / f"{name}.py"
+    if not name.isidentifier() or not path.is_file():
+        raise ValueError(f"no reference model '{name}': {path} is missing")
+    return importlib.import_module(f"h100_bench.reference.models.{name}")
 
 
 def build_model(spec: Dict, num_classes: int, dtype: torch.dtype,
@@ -61,12 +73,10 @@ def build_model(spec: Dict, num_classes: int, dtype: torch.dtype,
     """The reference model of a configuration's `model` entry: the name
     and the constructor's keywords, every one passed on (a key that the
     reference does not take raises)."""
-    if spec["name"] not in MODELS:
-        raise ValueError(f"no reference model '{spec['name']}'")
     kw = {k: tuple(v) if isinstance(v, list) else v
           for k, v in spec.items() if k != "name"}
-    return MODELS[spec["name"]](num_classes, compute_dtype=dtype, num=num,
-                                **kw)
+    return model_module(spec["name"]).MODEL(num_classes, compute_dtype=dtype,
+                                            num=num, **kw)
 
 
 def normalize(img_u8: torch.Tensor) -> torch.Tensor:

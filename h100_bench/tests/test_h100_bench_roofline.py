@@ -6,9 +6,10 @@ import pytest
 
 from h100_bench.roofline import (fused_pseudo_cm, peaks, pyr_branches,
                                  pyr_pool_fused_eval, resize_x2_cm)
-from h100_bench.roofline.shapes import Model, branch_sizes, planes
+from h100_bench.roofline.shapes import Model, branch_sizes, model_key, planes
 
-MAIN = [Model(11, 2, True), Model(19, 2, True), Model(5, 2, True)]
+ESP = model_key({"name": "espnetv2", "s": 2.0, "dec_base_planes": 16})
+MAIN = [Model(11, 2, ESP), Model(19, 2, ESP), Model(5, 2, ESP)]
 HW, B = (256, 480), 128
 
 
@@ -38,7 +39,7 @@ def test_resize_bytes():
 
 
 def test_resize_output_at_its_own_size():
-    f32 = [Model(3, 4, True)]
+    f32 = [Model(3, 4, ESP)]
     nbytes, _, _ = resize_x2_cm.work(resize_x2_cm.calls(f32, HW, 8, False))
     assert nbytes == 8 * 3 * (128 * 240 + 256 * 480) * 4
 
@@ -63,3 +64,16 @@ def test_bound_takes_the_largest_term():
     assert peaks.bound_ms(3.35e9, 0.0) == pytest.approx((1.0, "bytes"))
     assert peaks.bound_ms(0.0, 67e9)[1] == "f32 operations"
     assert peaks.bound_ms(0.0, 0.0, 989e9)[1] == "bf16 products"
+
+
+def test_model_reads_its_widths_from_the_configuration():
+    m = Model(3, 4, model_key({"name": "espnetv2", "s": 2.0,
+                               "dec_base_planes": 32}))
+    assert m.espnetv2 and m.dec_base_planes == 32
+    assert model_key({"b": [1, 2], "a": 1}) == (("a", 1), ("b", (1, 2)))
+    dl = Model(3, 4, model_key({"name": "deeplabv3",
+                                "stage_blocks": [3, 4, 6, 3]}))
+    assert not dl.espnetv2 and dl.spec["stage_blocks"] == (3, 4, 6, 3)
+    # a model without an ESPNetv2 decoder makes no call of ② ③ ④
+    for mod in (pyr_branches, pyr_pool_fused_eval, resize_x2_cm):
+        assert mod.calls([dl], HW, 8, False) == []

@@ -33,13 +33,27 @@ def _limits(name: str):
         "limits"]
 
 
+def shrink_sweep(tr: dict) -> dict:
+    """A sweep traffic at the tiny size."""
+    tr = copy.deepcopy(tr)
+    tr.update(batch=4, sweep_images=8, pool_images=8, loader_workers=1)
+    return tr
+
+
+def shrink_finetune(tr: dict) -> dict:
+    """A fine-tune traffic at the tiny size."""
+    tr = copy.deepcopy(tr)
+    tr.update(batch=2, pool_images=8, crop_hw=HW, warm_steps=1,
+              loader_workers=1, trace_skip=1, trace_steps=2)
+    return tr
+
+
 def sweep_cell(target: bool = False) -> common.Cell:
     real = "deeplabv3_r50.sweep_r1_b8" if target else \
         "espnetv2_s2.sweep_b128"
-    tr = copy.deepcopy(common.load_json(
+    tr = shrink_sweep(common.load_json(
         common.HERE / "traffic" / ("sweep_r1_b8.json" if target
                                    else "sweep_b128.json")))
-    tr.update(batch=4, sweep_images=8, pool_images=8, loader_workers=1)
     cfg = DEEPLAB if target else ESP
     return common.Cell(real, copy.deepcopy(cfg), tr,
                        configs={"espnetv2_s2": copy.deepcopy(ESP)},
@@ -49,9 +63,7 @@ def sweep_cell(target: bool = False) -> common.Cell:
 def finetune_cell(model: str = "espnetv2") -> common.Cell:
     real = ("espnetv2_s2.finetune_b8" if model == "espnetv2"
             else "deeplabv3_r50.finetune_b8")
-    tr = copy.deepcopy(common.load_json(common.HERE / "traffic"
-                                        / "finetune_b8.json"))
-    tr.update(batch=2, pool_images=8, crop_hw=[32, 48], warm_steps=1,
-              loader_workers=1, trace_skip=1, trace_steps=2)
+    tr = shrink_finetune(common.load_json(common.HERE / "traffic"
+                                          / "finetune_b8.json"))
     cfg = ESP if model == "espnetv2" else DEEPLAB
     return common.Cell(real, copy.deepcopy(cfg), tr, limits=_limits(real))

@@ -1,7 +1,8 @@
-"""The traced run's instruments: spans around the calls into each layer,
-opened by forward hooks that the benchmark registers on the program's
-modules, a bounded `torch.profiler` window inside the measured window, and
-the reading of its events, kept in memory.
+"""The traced run's instruments: a span around the fine-tuned model's
+forward, opened by forward hooks that the benchmark registers on it (the
+program's own `mspl.*` spans mark the rest), a bounded `torch.profiler`
+window inside the measured window, and the reading of its events, kept in
+memory.
 
 Device time under a span is the time of the device operations whose launch
 (the runtime call that shares the operation's correlation id) fell inside
@@ -82,8 +83,14 @@ class Profiled:
         self.prof = None
         print(f"trace: {len(view.dev)} device operations, {len(view.launch)}"
               f" launches, window {view.window_us / 1e3:.3f} ms, busy "
-              f"{view.busy_us() / 1e3:.3f} ms", flush=True)
+              f"{view.busy_us() / 1e3:.3f} ms, kernels "
+              f"{view.kernels_us() / 1e3:.3f} ms", flush=True)
         return view
+
+
+def _is_kernel(name: str) -> bool:
+    """A kernel, not a copy or a set (`Memcpy ...`, `Memset ...`)."""
+    return not name.startswith("Mem")
 
 
 def kernel_base(name: str) -> str:
@@ -149,8 +156,7 @@ class TraceView:
 
     def kernels_us(self) -> float:
         """Device time of every kernel (copies and sets left out)."""
-        return sum(b - a for n, a, b, _ in self.dev
-                   if not n.startswith("Mem"))
+        return sum(b - a for n, a, b, _ in self.dev if _is_kernel(n))
 
     def _intervals(self, match) -> Dict[int, List[Tuple[float, float]]]:
         """Per thread, the merged host intervals of events that `match`."""
@@ -169,12 +175,18 @@ class TraceView:
             merged[t] = out
         return merged
 
-    def device_us_under(self, match) -> float:
-        """Device time launched inside host events whose name `match`es."""
+    def device_us_under(self, match, kernels_only: bool = False) -> float:
+        """Device time launched inside host events whose name `match`es
+        (with `kernels_only`, of kernels alone, as `kernels_us` takes
+        them).  A CUDA graph's replayed kernels share the correlation id
+        of their `cudaGraphLaunch`, so they fall under the span that holds
+        the launch."""
         spans = self._intervals(match)
         starts = {t: [a for a, _ in iv] for t, iv in spans.items()}
         total = 0.0
         for name, a, b, cid in self.dev:
+            if kernels_only and not _is_kernel(name):
+                continue
             hit = self.launch.get(cid)
             if hit is None or hit[1] not in spans:
                 continue

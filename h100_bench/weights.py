@@ -1,12 +1,13 @@
-"""Seeded model weights, made on the device in one draw a model.
+"""Seeded model weights, made on the device in one draw a law family.
 
-The laws are the port's initializers' (flax's families): ESPNetv2 convs
-He-normal (std sqrt(2 / fan_in)), PReLU alphas 0.25; DeepLab convs a
-truncated normal (cut at 2 std) at variance 2 / fan_in, its classifier at
-1 / fan_in; BatchNorm at identity (scale 1, bias 0, mean 0, variance 1),
-other biases 0.  The state dict's keys and shapes come from the
-benchmark's own reference model, so the same dict loads into the port's
-model and into the reference; the same seed gives the same bits.
+Each reference model's file (`reference/models/<name>.py`) gives the law of
+every leaf of its state dict as `weight_law(name, shape) -> (law, value)`:
+`normal` (a unit normal times `value`), `trunc` (a unit normal cut at 2
+std, times `value`) or `const` (filled with `value`).  The laws are the
+port's initializers' (flax's families).  The state dict's keys and shapes
+come from the benchmark's own reference model, so the same dict loads
+into the port's model and into the reference; the same seed gives the
+same bits.
 
 A model that runs in eval mode takes its BatchNorms' running statistics
 from images first (`calibrated`), as a trained model's describe the images
@@ -17,69 +18,74 @@ every softmax is one-hot.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
-_TRUNC = 2.0
-_TRUNC_STD = 0.87962566103423978  # std of a unit normal cut at +-2
+TRUNC = 2.0
+TRUNC_STD = 0.87962566103423978  # std of a unit normal cut at +-2
 
 
-def _fan_in(shape) -> int:
+def fan_in(shape) -> int:
     return int(math.prod(shape[1:]))
 
 
-def _laws(kind: str, name: str, shape):
-    """(law, value): law 'normal' or 'trunc' with value the std scale, or
-    'const' with value the fill."""
+def fixed(name: str) -> Optional[Tuple[str, float]]:
+    """The law every model here gives BatchNorm's running statistics
+    (mean 0, variance 1), its step count and biases (0); None for other
+    leaves."""
     leaf = name.rsplit(".", 1)[-1]
     if leaf == "running_var":
         return "const", 1.0
     if leaf in ("running_mean", "num_batches_tracked", "bias"):
         return "const", 0.0
-    if kind == "espnetv2":
-        if name.endswith("dw_weights"):
-            return "normal", math.sqrt(2.0 / 9.0)
-        if len(shape) == 4:
-            return "normal", math.sqrt(2.0 / _fan_in(shape))
-        if leaf == "alpha":
-            return "const", 0.25
-        return "const", 1.0  # BatchNorm scale
-    if kind == "deeplabv3":
-        if len(shape) == 4:
-            scale = 1.0 if name.startswith("classifier.") else 2.0
-            return "trunc", math.sqrt(scale / _fan_in(shape)) / _TRUNC_STD
-        return "const", 1.0
-    raise ValueError(f"no weight laws for '{kind}'")
+    return None
+
+
+def _normal(n: int, g: torch.Generator, device) -> torch.Tensor:
+    return torch.randn(n, generator=g, device=device)
+
+
+def _trunc(n: int, g: torch.Generator, device) -> torch.Tensor:
+    lo = math.erf(-TRUNC / math.sqrt(2))
+    hi = math.erf(TRUNC / math.sqrt(2))
+    u = torch.rand(n, generator=g, device=device) * (hi - lo) + lo
+    return (torch.erfinv(u) * math.sqrt(2)).clamp_(-TRUNC, TRUNC)
+
+
+# each law family's unit draw of n values
+DRAWS = {"normal": _normal, "trunc": _trunc}
 
 
 def make_state(kind: str, shapes: Dict[str, torch.Size], seed: int,
                device) -> Dict[str, torch.Tensor]:
     """A state dict of `shapes` (name -> shape, in the model's order) with
-    the laws of `kind`, drawn from `seed` on `device`."""
-    draws = [(k, s) for k, s in shapes.items()
-             if _laws(kind, k, s)[0] != "const"]
-    total = sum(math.prod(s) for _, s in draws)
+    the laws of the reference model `kind`, drawn from `seed` on `device`:
+    one flat draw a law family, the families in the order of their first
+    leaf, each leaf taking the next values of its family's draw."""
+    from h100_bench.reference.pipeline import model_module
+
+    law_of = model_module(kind).weight_law
+    laws = {k: law_of(k, s) for k, s in shapes.items()}
+    totals: Dict[str, int] = {}
+    for k, (law, _) in laws.items():
+        if law != "const":
+            totals[law] = totals.get(law, 0) + math.prod(shapes[k])
     g = torch.Generator(device=device).manual_seed(seed)
-    if kind == "deeplabv3":
-        lo = math.erf(-_TRUNC / math.sqrt(2))
-        hi = math.erf(_TRUNC / math.sqrt(2))
-        u = torch.rand(total, generator=g, device=device) * (hi - lo) + lo
-        flat = (torch.erfinv(u) * math.sqrt(2)).clamp_(-_TRUNC, _TRUNC)
-    else:
-        flat = torch.randn(total, generator=g, device=device)
-    state, off = {}, 0
+    flats = {law: DRAWS[law](n, g, device) for law, n in totals.items()}
+    offsets = dict.fromkeys(totals, 0)
+    state = {}
     for name, shape in shapes.items():
-        law, value = _laws(kind, name, shape)
+        law, value = laws[name]
         if law == "const":
             dtype = torch.int64 if name.endswith("num_batches_tracked") \
                 else torch.float32
             state[name] = torch.full(tuple(shape), value, dtype=dtype,
                                      device=device)
             continue
-        n = math.prod(shape)
-        state[name] = flat[off:off + n].view(tuple(shape)).mul_(value)
-        off += n
+        n, off = math.prod(shape), offsets[law]
+        state[name] = flats[law][off:off + n].view(tuple(shape)).mul_(value)
+        offsets[law] = off + n
     return state
 
 
