@@ -69,6 +69,7 @@ from mspl_tpu_torch.utils.registry import (CONF_MODES, FUSION_MODES,
                                            MODEL_NAMES, SCHEDULER_NAMES,
                                            SEGMENTATION_DATASETS,
                                            dataset_info)
+from mspl_tpu_torch.utils.torch_import import TWIN_MODELS
 # the architecture-shaping kwargs a checkpoint meta carries (deeplabv3
 # stage_blocks/aspp_features, espnetv2 dec_base_planes), honored on every
 # rebuild from a meta
@@ -682,6 +683,9 @@ def cmd_export_torch(args) -> Dict:
     from mspl_tpu_torch.utils.torch_import import export_torch_state_dict
 
     _, variables, meta = load_model_checkpoint(args.checkpoint)
+    if meta["model"] not in TWIN_MODELS:
+        raise SystemExit(f"export-torch: no torch twin layout for "
+                         f"'{meta['model']}'; supported: {TWIN_MODELS}")
     sd = export_torch_state_dict(
         meta["model"], variables, num_classes=int(meta["num_classes"]),
         s=float(meta.get("s", 2.0)), **_arch_meta_kw(meta))
@@ -826,7 +830,7 @@ def build_parser() -> argparse.ArgumentParser:
     it.add_argument("--pth", required=True, help="torch state dict / "
                     "checkpoint file (.pth/.pt/.pth.tar; 'module.' "
                     "prefixes and checkpoint envelopes handled)")
-    it.add_argument("--model", required=True, choices=MODEL_NAMES)
+    it.add_argument("--model", required=True, choices=TWIN_MODELS)
     it.add_argument("--num-classes", type=int, required=True)
     it.add_argument("--s", type=float, default=2.0)
     it.add_argument("--dataset", default=None,

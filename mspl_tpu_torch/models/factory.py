@@ -19,6 +19,7 @@ from mspl_tpu_torch.layers.conv_blocks import BatchNorm
 from mspl_tpu_torch.models.deeplab import DeepLabV3, _Conv
 from mspl_tpu_torch.models.espnetv2 import (EESPNet, ESPNetv2Segmentation,
                                             init_random)
+from mspl_tpu_torch.models.segformer import SegFormer
 from mspl_tpu_torch.utils.registry import MODEL_NAMES
 
 # flax's truncated-normal variance scaling draws from a unit normal cut at
@@ -30,13 +31,15 @@ _TRUNC_STD = 0.87962566103423978
 def build_segmentation_model(name: str, num_classes: int, s: float = 2.0,
                              compute_dtype: torch.dtype = torch.float32,
                              **kwargs) -> nn.Module:
-    """'espnetv2' (width scaler `s`) or 'deeplabv3'; `kwargs` go to the
-    model's constructor."""
+    """'espnetv2' (width scaler `s`), 'deeplabv3' or 'segformer' (B5's
+    widths by default); `kwargs` go to the model's constructor."""
     if name == "espnetv2":
         return ESPNetv2Segmentation(num_classes, s=s,
                                     compute_dtype=compute_dtype, **kwargs)
     if name == "deeplabv3":
         return DeepLabV3(num_classes, compute_dtype=compute_dtype, **kwargs)
+    if name == "segformer":
+        return SegFormer(num_classes, compute_dtype=compute_dtype, **kwargs)
     raise ValueError(f"unknown model '{name}'; supported: {MODEL_NAMES}")
 
 
@@ -64,6 +67,40 @@ def _init_deeplab(model: DeepLabV3,
     model.classifier.bias.zero_()
 
 
+def _normal(w: torch.Tensor, std: float,
+            generator: Optional[torch.Generator]) -> None:
+    w.copy_(torch.randn(w.shape, generator=generator) * std)
+
+
+def _init_segformer(model: SegFormer,
+                    generator: Optional[torch.Generator]) -> None:
+    """The published laws: linear layers from a normal at std 0.02 (the
+    published truncated normal cuts at +-2 in absolute value, 100 std),
+    convolutions from a normal at sqrt(2 / fan_out), fan_out = k^2 * out /
+    groups, biases 0, LayerNorm and BatchNorm at identity.  The head's
+    linear layers and `linear_pred`, which PyTorch's default uniform law
+    draws, take a normal of that law's variance, 1 / (3 fan_in)."""
+    head = model.decode_head
+    uniform = {id(m) for m in head.modules()
+               if isinstance(m, (nn.Linear, nn.Conv2d))} - {
+        id(head.linear_fuse.conv)}
+    for mod in model.modules():
+        if isinstance(mod, (nn.Linear, nn.Conv2d)):
+            w = mod.weight
+            if id(mod) in uniform:
+                std = math.sqrt(1.0 / (3 * w[0].numel()))
+            elif isinstance(mod, nn.Linear):
+                std = 0.02
+            else:
+                fan_out = w.shape[0] * w[0, 0].numel() // mod.groups
+                std = math.sqrt(2.0 / fan_out)
+            _normal(w, std, generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, (nn.LayerNorm, BatchNorm)):
+            mod.reset_parameters()
+
+
 def init_model(model: nn.Module,
                generator: Optional[torch.Generator] = None) -> nn.Module:
     """Initialize `model`'s weights in place, drawn on the CPU from
@@ -72,6 +109,8 @@ def init_model(model: nn.Module,
     with torch.no_grad():
         if isinstance(model, DeepLabV3):
             _init_deeplab(model, generator)
+        elif isinstance(model, SegFormer):
+            _init_segformer(model, generator)
         elif isinstance(model, ESPNetv2Segmentation):
             init_random(model, generator)
         elif isinstance(model, EESPNet):

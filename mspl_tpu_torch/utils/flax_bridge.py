@@ -3,8 +3,8 @@
 `flax_leaves(model)` is the one walk between the two layouts: for every
 leaf of the flax `{"params", "batch_stats"}` tree of
 `mspl_tpu.models.ESPNetv2Segmentation`, `DeepLabV3` or the `EESPNet`
-classifier (or of one EESP unit, as the kernel tests load units) it
-yields the port's
+classifier (or of one EESP unit, as the kernel tests load units), and of
+the port's `SegFormer`, which the JAX package lacks, it yields the port's
 state-dict key that holds it, the index into that tensor's first dimension
 (or None), the flax path and the layout.  Everything else is built on it,
 so loading, export and the optimizer's buffers (`engine/train.py`) cannot
@@ -37,6 +37,12 @@ A tree of an RGB-D model (a 4-channel stem) loads into a model built with
 `in_channels=4`; a tree and a model of different channel counts raise on
 the stem's shape.
 
+SegFormer's tree follows its module names, a list's index joined to its
+name as flax names list members (`backbone.block3.12.attn.kv` is
+`backbone/block3_12/attn/kv`): `DENSE` kernels and biases of its linear
+layers, `HWIO` convolutions, LayerNorm `scale` and `bias`, and the head's
+BatchNorm (`decode_head/linear_fuse/bn`) in "params" and "batch_stats".
+
 DeepLab's leaves carry flax's auto-names in call order: a conv's kernel
 sits under `_Conv_i/Conv_0` (explicit names for `stem`, `downsample`,
 `project`, `low_proj`, `fuse`; the classifier is a bare `Conv` with a
@@ -57,6 +63,7 @@ from mspl_tpu_torch.layers.eesp import EESP, DownSampler
 from mspl_tpu_torch.layers.pyramid_pool import EfficientPWC, EfficientPyrPool
 from mspl_tpu_torch.models.deeplab import DeepLabV3
 from mspl_tpu_torch.models.espnetv2 import EESPNet
+from mspl_tpu_torch.models.segformer import SegFormer
 
 HWIO, STACK, DENSE, SAME = "hwio", "stack", "dense", "same"
 Path = Tuple[str, ...]
@@ -227,12 +234,45 @@ def _deeplab(model: DeepLabV3) -> Iterator[Leaf]:
     yield from _conv("classifier", ("classifier",), True)
 
 
+def _module_path(key: str) -> Path:
+    """`backbone.block1.0.attn.q` -> ("backbone", "block1_0", "attn",
+    "q")."""
+    out = []
+    for part in key.split("."):
+        if part.isdigit():
+            out[-1] = f"{out[-1]}_{part}"
+        else:
+            out.append(part)
+    return tuple(out)
+
+
+def _segformer(model: SegFormer) -> Iterator[Leaf]:
+    for key, mod in model.named_modules():
+        path = _module_path(key)
+        if isinstance(mod, torch.nn.Linear):
+            yield Leaf(_k(key, "weight"), None, ("params",) + path
+                       + ("kernel",), DENSE)
+            yield Leaf(_k(key, "bias"), None, ("params",) + path
+                       + ("bias",), SAME)
+        elif isinstance(mod, torch.nn.Conv2d):
+            yield from _conv(key, path, mod.bias is not None)
+        elif isinstance(mod, torch.nn.LayerNorm):
+            yield Leaf(_k(key, "weight"), None, ("params",) + path
+                       + ("scale",), SAME)
+            yield Leaf(_k(key, "bias"), None, ("params",) + path
+                       + ("bias",), SAME)
+        elif isinstance(mod, torch.nn.BatchNorm2d):
+            yield from _bn(key, path)
+
+
 def flax_leaves(model: torch.nn.Module) -> Iterator[Leaf]:
     """Every leaf of the model's flax tree, in the JAX model's call order:
     an ESPNetv2, DeepLab or EESPNet classifier model, or one EESP unit
-    (its own tree)."""
+    (its own tree); a SegFormer's in its modules' order."""
     if isinstance(model, DeepLabV3):
         return _deeplab(model)
+    if isinstance(model, SegFormer):
+        return _segformer(model)
     if isinstance(model, EESP):
         return _eesp(model, "", ())
     if isinstance(model, EESPNet):
@@ -326,9 +366,10 @@ def to_flax(model: torch.nn.Module, tensors: Mapping[str, torch.Tensor],
 
 
 def load_flax_variables(model: torch.nn.Module, variables: Mapping) -> None:
-    """Fill the port's `ESPNetv2Segmentation`, `DeepLabV3`, `EESPNet` or
-    `EESP` unit from a flax variable tree of nested dicts of numpy arrays, in place;
-    raises on any missing leaf or shape mismatch."""
+    """Fill the port's `ESPNetv2Segmentation`, `DeepLabV3`, `SegFormer`,
+    `EESPNet` or `EESP` unit from a flax variable tree of nested dicts of
+    numpy arrays, in place; raises on any missing leaf or shape
+    mismatch."""
     values = to_port(model, variables)
     sd = model.state_dict()
     with torch.no_grad():

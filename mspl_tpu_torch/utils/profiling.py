@@ -37,6 +37,17 @@ the phase the host was in, not by what encloses every phase):
     mspl.train.backward       `loss.backward()` (and the gradient sum
                               under a mesh)
     mspl.train.optimizer      the learning-rate set and `optimizer.step()`
+    mspl.segformer.embed:<i>  SegFormer's overlapping patch embedding of
+                              stage i (1-4): its convolution and LayerNorm
+    mspl.segformer.attn:<i>   a stage-i block's attention branch: its
+                              LayerNorm, spatial reduction, q, kv, the two
+                              products, proj and the residual add
+    mspl.segformer.ffn:<i>    a stage-i block's Mix-FFN branch: its
+                              LayerNorm, fc1, depthwise convolution, GELU,
+                              fc2 and the residual add
+    mspl.segformer.head       SegFormer's decoder: the stages' linear
+                              layers, upsampling, `linear_fuse`,
+                              `linear_pred` and the final resize
 
 Wrapping a sweep or a fine-tune in `trace(dir)` records them beside the
 CUDA kernels, on the profiler's one clock, so TensorBoard's trace view

@@ -64,7 +64,7 @@ DATASET_INFO: Dict[str, DatasetInfo] = {
 
 SEGMENTATION_DATASETS = tuple(DATASET_INFO.keys())
 
-MODEL_NAMES = ("espnetv2", "deeplabv3")
+MODEL_NAMES = ("espnetv2", "deeplabv3", "segformer")
 
 SCHEDULER_NAMES = ("poly", "step", "cyclic", "hybrid", "linear", "fixed")
 

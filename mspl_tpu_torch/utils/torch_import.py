@@ -51,6 +51,9 @@ _ARCH_META_KEYS = {
     "deeplabv3": ("stage_blocks", "aspp_features"),
 }
 
+# the models with a torch twin to import from and export to
+TWIN_MODELS = tuple(_ARCH_META_KEYS)
+
 Target = Union[str, None, Tuple[str, ...]]
 
 

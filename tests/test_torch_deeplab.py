@@ -183,9 +183,10 @@ def test_rgbd_tree_loads_into_four_channels():
 
 
 def test_factory_builds_by_registry_name():
-    """Both registry names build their model on the CPU; another name
-    raises ValueError listing the registry's."""
-    assert MODEL_NAMES == ("espnetv2", "deeplabv3")
+    """Both registry names build their model on the CPU (the third,
+    segformer, is `tests/test_torch_segformer.py`'s); another name raises
+    ValueError listing the registry's."""
+    assert MODEL_NAMES == ("espnetv2", "deeplabv3", "segformer")
     esp = build_segmentation_model("espnetv2", 5, s=0.5, dec_base_planes=8)
     dl = build_segmentation_model("deeplabv3", 5, compute_dtype=torch.bfloat16,
                                   **MODEL_KW)

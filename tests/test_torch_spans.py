@@ -1,9 +1,10 @@
 """The port's program spans (`utils/profiling.py::span`) on the CPU: a
 channel-major sweep over the port's `DataLoader` and one train step emit
 their `mspl.*` spans where the work happens, once a batch or step, on the
-calling thread; with no profiler running no span reaches
-`record_function`, and the outputs do not depend on whether a profiler
-runs."""
+calling thread, and a SegFormer's forward its `mspl.segformer.*` spans,
+one a stage's embedding, block branch and head; with no profiler running
+no span reaches `record_function`, and the outputs do not depend on
+whether a profiler runs."""
 
 from collections import Counter
 
@@ -17,6 +18,7 @@ from mspl_tpu_torch.data.loader import DataLoader
 from mspl_tpu_torch.engine.schedules import build_schedule
 from mspl_tpu_torch.engine.train import create_train_state, make_train_step
 from mspl_tpu_torch.models.espnetv2 import ESPNetv2Segmentation
+from mspl_tpu_torch.models.segformer import SegFormer
 from mspl_tpu_torch.pseudo import cbst
 from mspl_tpu_torch.pseudo.generate import PseudoLabelGenerator, make_source
 from mspl_tpu_torch.utils import profiling
@@ -150,3 +152,30 @@ def test_outputs_do_not_depend_on_the_profiler(generator):
             assert torch.equal(a, b)
     assert torch.equal(loss_a, loss_b)
     assert all(torch.equal(a, b) for a, b in zip(params_a, params_b))
+
+
+def test_segformer_forward_emits_its_spans_and_costs_nothing_without(
+        monkeypatch):
+    depths = (1, 2, 1, 1)
+    torch.manual_seed(0)
+    model = SegFormer(3, embed_dims=(8, 16, 24, 32), num_heads=(1, 2, 3, 4),
+                      depths=depths, decoder_dim=16).eval()
+    x = torch.randn(1, 3, 64, 96)
+    with torch.no_grad():
+        traced, events = _profiled(lambda: model(x))
+        count = Counter(e.name for e in events
+                        if e.name.startswith("mspl.segformer."))
+        want = {"mspl.segformer.head": 1}
+        for i, d in enumerate(depths, start=1):
+            want.update({f"mspl.segformer.embed:{i}": 1,
+                         f"mspl.segformer.attn:{i}": d,
+                         f"mspl.segformer.ffn:{i}": d})
+        assert dict(count) == want
+        caller = {e.thread for e in events if e.name == "test.caller"}
+        assert {e.thread for e in events} == caller
+
+        def refuse(name):
+            raise AssertionError(f"record_function({name!r}) with tracing "
+                                 "off")
+        monkeypatch.setattr(profiling, "record_function", refuse)
+        assert torch.equal(model(x), traced)
