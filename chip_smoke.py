@@ -1338,8 +1338,10 @@ def swapped(swaps):
 
 def plain_kernels():
     """Route the model and the engine through the plain versions by name,
-    with every source's forward eager (a generator's CUDA graph would
-    replay the kernels it captured)."""
+    with every source's forward and every train step's model eager (a
+    generator's or a train step's CUDA graph would replay the kernels it
+    captured)."""
+    import mspl_tpu_torch.engine.train as et
     import mspl_tpu_torch.layers.eesp as le
     import mspl_tpu_torch.layers.pyramid_pool as pp
     import mspl_tpu_torch.models.espnetv2 as me
@@ -1353,7 +1355,8 @@ def plain_kernels():
               eesp_stage.eesp_stage_fused_eval_plain),
              (generate, "fused_pseudo_pass_pm",
               pseudo.fused_pseudo_pass_plain),
-             (generate, "_graphable", lambda imgs: False)]
+             (generate, "_graphable", lambda imgs: False),
+             (et, "_graphable", lambda imgs: False)]
     return swapped(swaps)
 
 

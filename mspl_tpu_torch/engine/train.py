@@ -64,6 +64,32 @@ the same file; ranks outside the mesh receive the trained weights.  With
 `torch.distributed` initialized and no mesh given, `train_segmentation`
 takes `make_mesh_for_batch(train_loader.batch_size)`, as the reference
 defaults to a mesh over every device; one process trains alone.
+
+On a CUDA device, without a mesh and without `remat`, the model's train
+forward and its backward replay from CUDA graphs, so that the host issues
+a few launches a step instead of thousands: two graphs a key (the
+augmented batch's shape and dtype, and whether the batch has "valid"),
+joined as one autograd node the way `torch.cuda.make_graphed_callables`
+joins them (`_Replayed`).  The forward graph runs the model on the
+normalized crops to the logits, BatchNorm's running-statistic updates and
+③'s launches included; the backward graph runs from the logits' gradient
+to every parameter's, ③'s plain backward included, and autograd then
+accumulates those into `.grad`.  The upload, the augmentation (whose
+scale draw moves its shapes each step), `segmentation_loss`, the
+backward down to the logits and the optimizer step stay eager.  A key's
+first step runs eagerly, which warms cuDNN, cuBLAS, ③'s plans and the
+optimizer's buffers; its second captures both graphs (a capture runs no
+kernel, so it leaves the train state as it was) and replays them at
+once; every later step replays.  The replay is issued from inside the
+model's own call, so hooks on the model still bracket it.  A capture runs
+the kernel wrappers but no kernel, so their launch counters are put back
+after it, and each replay adds what its capture counted.  The graphs keep
+the model's tensors and the cached plans of ③ and ④ alive
+(`generate._kept`); when the storage of any parameter or buffer changes
+(a restore that replaces tensors, `model.to`), the graphs go: a key's next
+step runs eagerly, and the one after captures again.  Under a mesh the
+gradients' `all_reduce` keeps the step eager; with `remat` the recompute
+does.
 """
 
 from __future__ import annotations
@@ -71,7 +97,7 @@ from __future__ import annotations
 import contextlib
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -88,7 +114,8 @@ from mspl_tpu_torch.layers.conv_blocks import (bn_stat_groups, bn_sync,
 from mspl_tpu_torch.parallel.mesh import (barrier, make_mesh_for_batch, psum,
                                           replicate, shard_batch,
                                           share_with_outside)
-from mspl_tpu_torch.pseudo.generate import load_variables
+from mspl_tpu_torch.pseudo.generate import (_CudaGraph, _kept,
+                                            _launch_counters, load_variables)
 from mspl_tpu_torch.utils.checkpoint import (has_checkpoint, load_checkpoint,
                                              save_checkpoint)
 from mspl_tpu_torch.utils.flax_bridge import (flax_variables,
@@ -275,6 +302,155 @@ def sum_grads(params: Iterable[torch.Tensor], group) -> None:
             off += g.numel()
 
 
+def _graphable(imgs: torch.Tensor) -> bool:
+    """Whether a train step on `imgs` replays its model from CUDA graphs."""
+    return imgs.is_cuda
+
+
+@dataclass
+class _StepReplay:
+    """A key's captured train forward and backward: the two graphs, the
+    input each forward replay reads and the logits it writes, the logits'
+    gradient each backward replay reads and the parameters' gradients it
+    writes (None where a parameter takes none), the launches each replay
+    adds to the kernel wrappers' counters, and the device tensors the
+    graphs read (`_kept`)."""
+
+    forward: _CudaGraph
+    backward: _CudaGraph
+    input: torch.Tensor
+    output: torch.Tensor
+    grad_output: torch.Tensor
+    params: Tuple[torch.Tensor, ...]
+    grads: Tuple[Optional[torch.Tensor], ...]
+    forward_launches: tuple
+    backward_launches: tuple
+    keep: tuple
+
+
+def _add_launches(launches) -> None:
+    for fn, n in launches:
+        fn.launches += n
+
+
+def _launch_delta(counters, before, after) -> tuple:
+    return tuple((fn, b - a) for fn, a, b in zip(counters, before, after)
+                 if b != a)
+
+
+class _Replayed(torch.autograd.Function):
+    """The model's forward as one autograd node: its forward replays the
+    forward graph on `x`, its backward the backward graph, and autograd
+    accumulates the parameters' gradients it returns into `.grad`."""
+
+    @staticmethod
+    def forward(ctx, rep: _StepReplay, x, *params):
+        ctx.rep = rep
+        rep.input.copy_(x)
+        with span("mspl.train.replay"):
+            rep.forward.replay()
+        _add_launches(rep.forward_launches)
+        return rep.output.detach()
+
+    @staticmethod
+    def backward(ctx, grad):
+        rep = ctx.rep
+        rep.grad_output.copy_(grad)
+        rep.backward.replay()
+        _add_launches(rep.backward_launches)
+        return (None, None) + tuple(None if g is None else g.detach()
+                                    for g in rep.grads)
+
+
+@contextlib.contextmanager
+def _forward_as(model: nn.Module, fn: Callable):
+    """`model`'s forward replaced by `fn` for the block, so that a call of
+    the model, hooks and all, runs `fn`."""
+    own = vars(model).get("forward")
+    model.forward = fn
+    try:
+        yield
+    finally:
+        if own is None:
+            del model.forward
+        else:
+            model.forward = own
+
+
+class _ModelGraphs:
+    """The train step's CUDA graphs of `model`'s forward and backward, a
+    pair a key, in one memory pool (module docstring); `counts` (the step)
+    holds the counters `graph_captures`, `graph_replays` and
+    `eager_steps`."""
+
+    def __init__(self, model: nn.Module, counts):
+        self.model, self.counts = model, counts
+        self.replays: Dict[tuple, _StepReplay] = {}
+        self.seen = set()  # keys whose step ran eagerly once
+        self.pool = None
+        self.storage = None
+
+    def watch(self) -> None:
+        """Drop the graphs if the storage of a parameter or buffer changed
+        since the last step.  A step calls this before its upload, while
+        the card still runs the step before."""
+        storage = (tuple((p.data_ptr(), p.requires_grad)
+                         for p in self.model.parameters()),
+                   tuple(b.data_ptr() for b in self.model.buffers()))
+        if storage != self.storage:
+            self.replays.clear()
+            self.seen.clear()
+            self.storage = storage
+
+    def __call__(self, x: torch.Tensor, masked: bool) -> torch.Tensor:
+        """The model's logits on `x`: eager on a key's first step,
+        captured on its second, replayed from then on."""
+        key = (tuple(x.shape), x.dtype, masked)
+        if key not in self.replays and key not in self.seen:
+            self.seen.add(key)
+            self.counts.eager_steps += 1
+            return self.model(x)
+        orig = self.model.forward
+        with _forward_as(self.model, lambda x: self._replay(key, x, orig)):
+            return self.model(x)
+
+    def _replay(self, key: tuple, x: torch.Tensor,
+                orig: Callable) -> torch.Tensor:
+        rep = self.replays.get(key)
+        if rep is None:
+            rep = self.replays[key] = self._capture(x, orig)
+            self.counts.graph_captures += 1
+        self.counts.graph_replays += 1
+        return _Replayed.apply(rep, x, *rep.params)
+
+    def _capture(self, x: torch.Tensor, orig: Callable) -> _StepReplay:
+        """Capture `orig`, the model's forward, on a copy of `x`, then its
+        backward from the logits to every parameter that takes a
+        gradient, into the step's pool."""
+        if self.pool is None:
+            self.pool = _CudaGraph.new_pool()
+        params = tuple(p for p in self.model.parameters() if p.requires_grad)
+        static = x.detach().clone()
+        counters = _launch_counters()
+        before = [fn.launches for fn in counters]
+        fwd, bwd = _CudaGraph(self.pool), _CudaGraph(self.pool)
+        try:
+            out = fwd.capture(lambda: orig(static))
+            mid = [fn.launches for fn in counters]
+            grad_out = torch.empty_like(out)
+            grads = bwd.capture(lambda: torch.autograd.grad(
+                out, params, grad_out, allow_unused=True))
+            after = [fn.launches for fn in counters]
+        finally:
+            for fn, n in zip(counters, before):
+                fn.launches = n
+        return _StepReplay(fwd, bwd, static, out.detach(), grad_out, params,
+                           tuple(grads),
+                           _launch_delta(counters, before, mid),
+                           _launch_delta(counters, mid, after),
+                           _kept(self.model))
+
+
 def make_train_step(model: nn.Module,
                     crop_hw: Optional[Tuple[int, int]] = None,
                     scale_range: Tuple[float, float] = (0.5, 2.0),
@@ -304,8 +480,14 @@ def make_train_step(model: nn.Module,
     global batch's.  `bn_groups` > 1 must then be a multiple of the data
     axis.
 
+    On a CUDA device, without `mesh` and `remat`, the model's forward and
+    backward replay from CUDA graphs from a key's second step on (module
+    docstring).  The step's `graph_captures`, `graph_replays` and
+    `eager_steps` count its steps by how the model ran.
+
     Under a profiler each phase of the step is a span: `mspl.train.upload`,
-    `.augment`, `.forward`, `.loss`, `.backward` and `.optimizer`
+    `.augment`, `.forward` (with `.replay` inside it around a forward
+    graph's replay), `.loss`, `.backward` and `.optimizer`
     (`utils/profiling.py`)."""
     if augment and crop_hw is None:
         raise ValueError("augment=True needs crop_hw")
@@ -329,6 +511,8 @@ def make_train_step(model: nn.Module,
         if state.model is not model:
             raise ValueError("the state holds another model than the step")
         model.train()
+        if graphs is not None:
+            graphs.watch()
         batch, rows = data_rows(batch, mesh)
         with span("mspl.train.upload"):
             imgs = _on(batch, "image", device)
@@ -346,7 +530,11 @@ def make_train_step(model: nn.Module,
         state.optimizer.zero_grad(set_to_none=True)
         with _bn_context(bn_groups, sync):
             with span("mspl.train.forward"):
-                logits = forward(imgs)
+                if graphs is not None and _graphable(imgs):
+                    logits = graphs(imgs, valid is not None)
+                else:
+                    step.eager_steps += 1
+                    logits = forward(imgs)
             with span("mspl.train.loss"):
                 loss = segmentation_loss(
                     logits, labels, class_weights=cw, reg_mode=reg_mode,
@@ -366,6 +554,8 @@ def make_train_step(model: nn.Module,
         state.step += 1
         return state, {"loss": loss}
 
+    step.graph_captures = step.graph_replays = step.eager_steps = 0
+    graphs = None if mesh is not None or remat else _ModelGraphs(model, step)
     return step
 
 

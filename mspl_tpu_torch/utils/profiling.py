@@ -33,6 +33,8 @@ the phase the host was in, not by what encloses every phase):
                               copies to the device
     mspl.train.augment        `train_transform` or `normalize`
     mspl.train.forward        the model's train forward
+    mspl.train.replay         inside it, the replay of that forward's
+                              CUDA graph (`engine/train.py`)
     mspl.train.loss           `segmentation_loss`
     mspl.train.backward       `loss.backward()` (and the gradient sum
                               under a mesh)
