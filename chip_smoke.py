@@ -1341,10 +1341,10 @@ def plain_kernels():
     with every source's forward and every train step's model eager (a
     generator's or a train step's CUDA graph would replay the kernels it
     captured)."""
-    import mspl_tpu_torch.engine.train as et
     import mspl_tpu_torch.layers.eesp as le
     import mspl_tpu_torch.layers.pyramid_pool as pp
     import mspl_tpu_torch.models.espnetv2 as me
+    from mspl_tpu_torch.ops import graphs
 
     swaps = [(pp, "pyr_branches", pyrpool.pyr_branches_plain),
              (pp, "pyr_pool_fused_eval", pyrpool.pyr_pool_fused_eval_plain),
@@ -1355,8 +1355,7 @@ def plain_kernels():
               eesp_stage.eesp_stage_fused_eval_plain),
              (generate, "fused_pseudo_pass_pm",
               pseudo.fused_pseudo_pass_plain),
-             (generate, "_graphable", lambda imgs: False),
-             (et, "_graphable", lambda imgs: False)]
+             (graphs, "graphable", lambda x: False)]
     return swapped(swaps)
 
 

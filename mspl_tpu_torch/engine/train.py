@@ -66,30 +66,26 @@ takes `make_mesh_for_batch(train_loader.batch_size)`, as the reference
 defaults to a mesh over every device; one process trains alone.
 
 On a CUDA device, without a mesh and without `remat`, the model's train
-forward and its backward replay from CUDA graphs, so that the host issues
-a few launches a step instead of thousands: two graphs a key (the
-augmented batch's shape and dtype, and whether the batch has "valid"),
-joined as one autograd node the way `torch.cuda.make_graphed_callables`
-joins them (`_Replayed`).  The forward graph runs the model on the
-normalized crops to the logits, BatchNorm's running-statistic updates and
-③'s launches included; the backward graph runs from the logits' gradient
-to every parameter's, ③'s plain backward included, and autograd then
-accumulates those into `.grad`.  The upload, the augmentation (whose
-scale draw moves its shapes each step), `segmentation_loss`, the
-backward down to the logits and the optimizer step stay eager.  A key's
-first step runs eagerly, which warms cuDNN, cuBLAS, ③'s plans and the
-optimizer's buffers; its second captures both graphs (a capture runs no
-kernel, so it leaves the train state as it was) and replays them at
-once; every later step replays.  The replay is issued from inside the
-model's own call, so hooks on the model still bracket it.  A capture runs
-the kernel wrappers but no kernel, so their launch counters are put back
-after it, and each replay adds what its capture counted.  The graphs keep
-the model's tensors and the cached plans of ③ and ④ alive
-(`generate._kept`); when the storage of any parameter or buffer changes
-(a restore that replaces tensors, `model.to`), the graphs go: a key's next
-step runs eagerly, and the one after captures again.  Under a mesh the
-gradients' `all_reduce` keeps the step eager; with `remat` the recompute
-does.
+forward and its backward replay from CUDA graphs (`ops/graphs.py`), so
+that the host issues a few launches a step instead of thousands: two
+graphs a key (the augmented batch's shape and dtype, and whether the batch
+has "valid"), joined as one autograd node the way
+`torch.cuda.make_graphed_callables` joins them (`_Replayed`).  The forward
+graph runs the model on the normalized crops to the logits, BatchNorm's
+running-statistic updates and ③'s launches included; the backward graph
+runs from the logits' gradient to every parameter's, ③'s plain backward
+included, and autograd then accumulates those into `.grad`.  The upload,
+the augmentation (whose scale draw moves its shapes each step),
+`segmentation_loss`, the backward down to the logits and the optimizer
+step stay eager.  A key's first step runs eagerly, which warms cuDNN,
+cuBLAS, ③'s plans and the optimizer's buffers; its second captures both
+graphs (a capture runs no kernel, so it leaves the train state as it was)
+and replays them at once; every later step replays.  The replay is issued
+from inside the model's own call, so hooks on the model still bracket it.
+When the storage of any parameter or buffer changes (a restore that
+replaces tensors, `model.to`), the graphs go: a key's next step runs
+eagerly, and the one after captures again.  Under a mesh the gradients'
+`all_reduce` keeps the step eager; with `remat` the recompute does.
 """
 
 from __future__ import annotations
@@ -111,15 +107,15 @@ from mspl_tpu_torch.engine.metrics import MIOU, confusion_matrix
 from mspl_tpu_torch.engine.schedules import Schedule, build_schedule
 from mspl_tpu_torch.layers.conv_blocks import (bn_stat_groups, bn_sync,
                                                frozen_bn_stats)
+from mspl_tpu_torch.ops import graphs
 from mspl_tpu_torch.parallel.mesh import (barrier, make_mesh_for_batch, psum,
                                           replicate, shard_batch,
                                           share_with_outside)
-from mspl_tpu_torch.pseudo.generate import (_CudaGraph, _kept,
-                                            _launch_counters, load_variables)
 from mspl_tpu_torch.utils.checkpoint import (has_checkpoint, load_checkpoint,
                                              save_checkpoint)
 from mspl_tpu_torch.utils.flax_bridge import (flax_variables,
-                                              load_flax_variables, to_flax,
+                                              load_flax_variables,
+                                              load_variables, to_flax,
                                               to_port)
 from mspl_tpu_torch.utils.print_utils import (print_info_message,
                                               print_log_message)
@@ -302,40 +298,19 @@ def sum_grads(params: Iterable[torch.Tensor], group) -> None:
             off += g.numel()
 
 
-def _graphable(imgs: torch.Tensor) -> bool:
-    """Whether a train step on `imgs` replays its model from CUDA graphs."""
-    return imgs.is_cuda
-
-
 @dataclass
 class _StepReplay:
-    """A key's captured train forward and backward: the two graphs, the
-    input each forward replay reads and the logits it writes, the logits'
-    gradient each backward replay reads and the parameters' gradients it
-    writes (None where a parameter takes none), the launches each replay
-    adds to the kernel wrappers' counters, and the device tensors the
-    graphs read (`_kept`)."""
+    """A key's captured train forward and backward: the two graphs (the
+    forward's output the logits, the backward's the parameters' gradients,
+    None where a parameter takes none), the input each forward replay
+    reads, the logits' gradient each backward replay reads and the
+    parameters."""
 
-    forward: _CudaGraph
-    backward: _CudaGraph
+    forward: graphs.Captured
+    backward: graphs.Captured
     input: torch.Tensor
-    output: torch.Tensor
     grad_output: torch.Tensor
     params: Tuple[torch.Tensor, ...]
-    grads: Tuple[Optional[torch.Tensor], ...]
-    forward_launches: tuple
-    backward_launches: tuple
-    keep: tuple
-
-
-def _add_launches(launches) -> None:
-    for fn, n in launches:
-        fn.launches += n
-
-
-def _launch_delta(counters, before, after) -> tuple:
-    return tuple((fn, b - a) for fn, a, b in zip(counters, before, after)
-                 if b != a)
 
 
 class _Replayed(torch.autograd.Function):
@@ -348,18 +323,16 @@ class _Replayed(torch.autograd.Function):
         ctx.rep = rep
         rep.input.copy_(x)
         with span("mspl.train.replay"):
-            rep.forward.replay()
-        _add_launches(rep.forward_launches)
-        return rep.output.detach()
+            out = rep.forward.replay()
+        return out.detach()
 
     @staticmethod
     def backward(ctx, grad):
         rep = ctx.rep
         rep.grad_output.copy_(grad)
-        rep.backward.replay()
-        _add_launches(rep.backward_launches)
+        grads = rep.backward.replay()
         return (None, None) + tuple(None if g is None else g.detach()
-                                    for g in rep.grads)
+                                    for g in grads)
 
 
 @contextlib.contextmanager
@@ -387,7 +360,7 @@ class _ModelGraphs:
         self.model, self.counts = model, counts
         self.replays: Dict[tuple, _StepReplay] = {}
         self.seen = set()  # keys whose step ran eagerly once
-        self.pool = None
+        self.pool = graphs.Pool()
         self.storage = None
 
     def watch(self) -> None:
@@ -427,28 +400,15 @@ class _ModelGraphs:
         """Capture `orig`, the model's forward, on a copy of `x`, then its
         backward from the logits to every parameter that takes a
         gradient, into the step's pool."""
-        if self.pool is None:
-            self.pool = _CudaGraph.new_pool()
         params = tuple(p for p in self.model.parameters() if p.requires_grad)
         static = x.detach().clone()
-        counters = _launch_counters()
-        before = [fn.launches for fn in counters]
-        fwd, bwd = _CudaGraph(self.pool), _CudaGraph(self.pool)
-        try:
-            out = fwd.capture(lambda: orig(static))
-            mid = [fn.launches for fn in counters]
-            grad_out = torch.empty_like(out)
-            grads = bwd.capture(lambda: torch.autograd.grad(
-                out, params, grad_out, allow_unused=True))
-            after = [fn.launches for fn in counters]
-        finally:
-            for fn, n in zip(counters, before):
-                fn.launches = n
-        return _StepReplay(fwd, bwd, static, out.detach(), grad_out, params,
-                           tuple(grads),
-                           _launch_delta(counters, before, mid),
-                           _launch_delta(counters, mid, after),
-                           _kept(self.model))
+        fwd = self.pool.capture(lambda: orig(static), graphs.kept(self.model))
+        out = fwd.output
+        fwd.output = out.detach()  # the backward capture consumes `out`
+        grad_out = torch.empty_like(out)
+        bwd = self.pool.capture(lambda: torch.autograd.grad(
+            out, params, grad_out, allow_unused=True))
+        return _StepReplay(fwd, bwd, static, grad_out, params)
 
 
 def make_train_step(model: nn.Module,
@@ -511,8 +471,8 @@ def make_train_step(model: nn.Module,
         if state.model is not model:
             raise ValueError("the state holds another model than the step")
         model.train()
-        if graphs is not None:
-            graphs.watch()
+        if model_graphs is not None:
+            model_graphs.watch()
         batch, rows = data_rows(batch, mesh)
         with span("mspl.train.upload"):
             imgs = _on(batch, "image", device)
@@ -530,8 +490,8 @@ def make_train_step(model: nn.Module,
         state.optimizer.zero_grad(set_to_none=True)
         with _bn_context(bn_groups, sync):
             with span("mspl.train.forward"):
-                if graphs is not None and _graphable(imgs):
-                    logits = graphs(imgs, valid is not None)
+                if model_graphs is not None and graphs.graphable(imgs):
+                    logits = model_graphs(imgs, valid is not None)
                 else:
                     step.eager_steps += 1
                     logits = forward(imgs)
@@ -555,7 +515,8 @@ def make_train_step(model: nn.Module,
         return state, {"loss": loss}
 
     step.graph_captures = step.graph_replays = step.eager_steps = 0
-    graphs = None if mesh is not None or remat else _ModelGraphs(model, step)
+    model_graphs = (None if mesh is not None or remat
+                    else _ModelGraphs(model, step))
     return step
 
 

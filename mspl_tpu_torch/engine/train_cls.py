@@ -39,7 +39,7 @@ from mspl_tpu_torch.engine.train import (TrainState, _bn_context, _norm_kw,
 from mspl_tpu_torch.parallel.mesh import (barrier, make_mesh_for_batch, psum,
                                           replicate, shard_batch,
                                           share_with_outside)
-from mspl_tpu_torch.pseudo.generate import load_variables
+from mspl_tpu_torch.utils.flax_bridge import load_variables
 from mspl_tpu_torch.utils.print_utils import print_log_message
 
 _ENCODER_PREFIXES = ("level1", "level2_0", "level3_0", "level3_blocks",

@@ -16,25 +16,19 @@ NHWC sources take the plain `fused_pseudo_pass` (re-exported from
 the contiguous layout the kernel reads, a copy flax's NHWC models never
 pay.
 
-On a CUDA device each source's eval forward replays from a CUDA graph, the
-counterpart of the JAX package's compiled program: one graph per source
-and input (shape, dtype, device).  A key's first batch runs the forward
-eagerly.  Its second runs it eagerly again, which warms cuDNN and the
-kernels' plan caches (a capture may not make their host-to-device copies),
-and right after captures it on a side stream; every later batch only
-replays, so the host issues one launch a model instead of hundreds.  The
-normalized batch is copied into one static input that every source reads,
-and each source's logits stay in its graph's output, which the fused pass
-reads before the next replay writes it.  The graphs share one memory pool
-and replay in the order they were captured.  A capture runs the kernel
-wrappers but no kernel, so the wrappers' launch counters are put back
-after it, and each replay adds what its capture counted.  A graph keeps
-the source's weights and the cached plans of ③ and ④ (`pyrpool`'s
-least-recently-used plans, `resize_x2`'s taps) alive; the tables cached
-on a module (⑤'s taps, ⑥'s packs) live as long as its weights, which only
-`set_variables` may load.  `set_variables` drops the source's graphs, and
-its next two batches run eagerly and capture again.  CPU tensors never
-capture, and training never comes here.
+On a CUDA device each source's eval forward replays from a CUDA graph
+(`ops/graphs.py`): one graph per source and input (shape, dtype, device).
+A key's first batch runs the forward eagerly.  Its second runs it eagerly
+again, which warms cuDNN and the kernels' plan caches (a capture may not
+make their host-to-device copies), and right after captures it; every
+later batch only replays.  The normalized batch is copied into one static
+input that every source reads, and each source's logits stay in its
+graph's output, which the fused pass reads before the next replay writes
+it.  The graphs share one pool and are captured in the sources' order.
+The tables cached on a module (⑤'s taps, ⑥'s packs) live as long as its
+weights, which only `set_variables` may load; it drops the source's
+graphs, and its next two batches run eagerly and capture again.  CPU
+tensors never capture, and training never comes here.
 
 With a mesh (`parallel/mesh.py`) every rank of the job sweeps the same
 loader.  On the data axis each rank runs the whole per-batch pass above on
@@ -58,8 +52,7 @@ runs the fused tail kernel, and the logits resize kernel does not run.
 from __future__ import annotations
 
 import dataclasses
-import sys
-from typing import Callable, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -67,7 +60,7 @@ import torch.nn as nn
 
 from mspl_tpu_torch.data.label_space import label_conversion_matrix
 from mspl_tpu_torch.data.transforms import normalize as default_normalize
-from mspl_tpu_torch.ops import pyrpool, resize_x2
+from mspl_tpu_torch.ops import graphs
 from mspl_tpu_torch.ops.pseudo import fused_pseudo_pass_plain as \
     fused_pseudo_pass  # the reference pass, under the JAX package's name
 from mspl_tpu_torch.ops.pseudo import (apply_kc, entropy_confidence,
@@ -77,7 +70,7 @@ from mspl_tpu_torch.ops.pseudo_cm import fused_pseudo_cm
 from mspl_tpu_torch.ops.resize import resize_bilinear_cm
 from mspl_tpu_torch.parallel.mesh import (Mesh, gather_rows, psum,
                                           replicate, shard_batch)
-from mspl_tpu_torch.utils.flax_bridge import load_flax_variables
+from mspl_tpu_torch.utils.flax_bridge import load_variables
 from mspl_tpu_torch.utils.profiling import span
 from mspl_tpu_torch.utils.registry import IGNORE_LABEL
 
@@ -154,78 +147,6 @@ def fused_pseudo_soft_decoder_res(
 _AUTO = object()
 
 
-def _graphable(imgs: torch.Tensor) -> bool:
-    """Whether a forward on `imgs` replays from a CUDA graph."""
-    return imgs.is_cuda
-
-
-class _CudaGraph:
-    """One CUDA graph in a memory pool that several share."""
-
-    new_pool = staticmethod(torch.cuda.graph_pool_handle)
-
-    def __init__(self, pool):
-        self.graph = torch.cuda.CUDAGraph()
-        self.pool = pool
-
-    def capture(self, fn):
-        """fn's output; its kernels are recorded on a side stream, not
-        run."""
-        with torch.cuda.graph(self.graph, pool=self.pool,
-                              capture_error_mode="thread_local"):
-            return fn()
-
-    def replay(self) -> None:
-        """The recorded kernels, once, on the current stream."""
-        self.graph.replay()
-
-
-@dataclasses.dataclass
-class _Replay:
-    """A source's captured forward: its graph, the output each replay
-    writes, the launches each replay adds to the kernel wrappers' counters,
-    and the device tensors its kernels read (`_kept`)."""
-
-    graph: _CudaGraph
-    output: torch.Tensor
-    launches: Tuple[Tuple[Callable, int], ...]
-    keep: tuple
-
-
-def _launch_counters() -> list:
-    """The port's kernel wrappers that count their launches: each entry of
-    a loaded `mspl_tpu_torch.ops` module with an int `.launches`."""
-    found = {}
-    for name, mod in list(sys.modules.items()):
-        if mod is None or not name.startswith("mspl_tpu_torch.ops."):
-            continue
-        for fn in vars(mod).values():
-            if callable(fn) and type(getattr(fn, "launches", None)) is int:
-                found[id(fn)] = fn
-    return list(found.values())
-
-
-def _kept(model: nn.Module) -> tuple:
-    """What a graph of `model`'s forward keeps alive: the model's weights
-    and every cached plan of ③ and ④ (the few a forward looks up are
-    among them, and a cache may drop them later)."""
-    return (tuple(model.parameters()), tuple(model.buffers()),
-            tuple(p for lru in pyrpool._plan_cache.values()
-                  for p in lru.values()),
-            tuple(resize_x2._taps_cache.values()))
-
-
-def load_variables(model: nn.Module, variables) -> None:
-    """Load weights into `model` in place: a flax `{"params",
-    "batch_stats"}` tree of numpy arrays goes through `load_flax_variables`,
-    anything else is a torch state dict."""
-    if isinstance(variables, Mapping) and "params" in variables:
-        load_flax_variables(model, variables)
-    else:
-        model.load_state_dict(variables)
-    model.eval()
-
-
 def make_source(name: str, model: nn.Module, variables, src_dataset: str,
                 num_target: int = 3, channel_major: bool = False,
                 in_channels: int = 3,
@@ -299,12 +220,12 @@ class PseudoLabelGenerator:
         self.replay_names = [f"mspl.generate.replay:{s.name}"
                              for s in self.sources]
         # the forwards' CUDA graphs (module docstring): per input key
-        # (shape, dtype, device), source index -> _Replay
+        # (shape, dtype, device), source index -> graphs.Captured
         self.graph_captures = self.graph_replays = self.eager_forwards = 0
         self._graphs = {}
         self._seen = set()  # (source index, input key) run eagerly once
         self._inputs = {}   # input key -> the static input
-        self._pool = None
+        self._pool = graphs.Pool()
         self.mesh = mesh
         # the sources this rank runs: all of them, those of its model
         # slice, or none outside the mesh
@@ -338,14 +259,14 @@ class PseudoLabelGenerator:
         weights, go: its next two batches of each shape run eagerly, and
         the second captures again."""
         load_variables(self.sources[i].model, variables)
-        for graphs in self._graphs.values():
-            graphs.pop(i, None)
+        for replays in self._graphs.values():
+            replays.pop(i, None)
         self._seen = {w for w in self._seen if w[0] != i}
 
     def _static(self, imgs: torch.Tensor) -> torch.Tensor:
         """On a card, `imgs` copied into the static input of its key, which
         every source's forward and graph read; elsewhere `imgs`."""
-        if not _graphable(imgs):
+        if not graphs.graphable(imgs):
             return imgs
         key = (tuple(imgs.shape), imgs.dtype, imgs.device)
         static = self._inputs.get(key)
@@ -359,52 +280,34 @@ class PseudoLabelGenerator:
         second followed by the capture, replayed from then on (module
         docstring)."""
         s = self.sources[i]
-        if not _graphable(imgs):
+        if not graphs.graphable(imgs):
             self.eager_forwards += 1
             return s(imgs)
         key = (tuple(imgs.shape), imgs.dtype, imgs.device)
-        graphs = self._graphs.setdefault(key, {})
-        rep = graphs.get(i)
+        replays = self._graphs.setdefault(key, {})
+        rep = replays.get(i)
         if rep is None:
             self.eager_forwards += 1
             out = s(imgs)
             if (i, key) in self._seen:
-                self._capture(i, imgs, graphs)
+                self._capture(i, imgs, replays)
             self._seen.add((i, key))
             return out
         with span(self.replay_names[i]):
-            rep.graph.replay()
-        for fn, n in rep.launches:
-            fn.launches += n
+            out = rep.replay()
         self.graph_replays += 1
-        return rep.output
+        return out
 
-    def _capture(self, i: int, static: torch.Tensor, graphs) -> None:
+    def _capture(self, i: int, static: torch.Tensor, replays) -> None:
         """Capture source i's forward on `static` into the shared pool,
         right after an eager forward on the same batch warmed it up."""
-        # A graph of a later source captured before this one may have left
-        # the memory this capture takes for its output among its own
-        # intermediates; replayed after this one, it would overwrite the
-        # output before the fused pass reads it.  Those graphs capture
-        # again after this one, so that the pool's captures keep the
-        # sources' order.
-        for j in [j for j in graphs if j > i]:
-            del graphs[j]
-        if self._pool is None:
-            self._pool = _CudaGraph.new_pool()
+        # the pool's graphs replay in the order of their captures
+        # (`graphs.Pool`), so later sources' graphs go and capture again
+        for j in [j for j in replays if j > i]:
+            del replays[j]
         s = self.sources[i]
-        counters = _launch_counters()
-        before = [fn.launches for fn in counters]
-        graph = _CudaGraph(self._pool)
-        try:
-            out = graph.capture(lambda: s(static))
-            launches = tuple((fn, fn.launches - n)
-                             for fn, n in zip(counters, before)
-                             if fn.launches != n)
-        finally:
-            for fn, n in zip(counters, before):
-                fn.launches = n
-        graphs[i] = _Replay(graph, out, launches, _kept(s.model))
+        replays[i] = self._pool.capture(lambda: s(static),
+                                        graphs.kept(s.model))
         self.graph_captures += 1
 
     @torch.inference_mode()

@@ -54,7 +54,8 @@ from mspl_tpu_torch.parallel.mesh import (barrier, make_mesh_for_batch,
                                           share_with_outside)
 from mspl_tpu_torch.pseudo.cbst import apply_kc_device, sweep_kc
 from mspl_tpu_torch.pseudo.generate import (PseudoLabelGenerator, SourceModel,
-                                            load_variables, make_source)
+                                            make_source)
+from mspl_tpu_torch.utils.flax_bridge import load_variables
 from mspl_tpu_torch.utils.registry import IGNORE_LABEL
 
 

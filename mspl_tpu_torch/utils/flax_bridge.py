@@ -12,7 +12,8 @@ drift apart:
 
 - `load_flax_variables(model, variables)` copies a tree of nested dicts of
   numpy arrays (the caller converts JAX arrays with `np.asarray`; this
-  package never imports JAX) into the model, in place;
+  package never imports JAX) into the model, in place, and
+  `load_variables` takes such a tree or a torch state dict;
 - `flax_variables(model)` returns the tree flax would hold;
 - `to_port` / `to_flax` convert between a tree and {state-dict key:
   tensor} for any collection, e.g. a momentum trace shaped like "params".
@@ -375,6 +376,17 @@ def load_flax_variables(model: torch.nn.Module, variables: Mapping) -> None:
     with torch.no_grad():
         for k, t in values.items():
             sd[k].copy_(t)
+    model.eval()
+
+
+def load_variables(model: torch.nn.Module, variables) -> None:
+    """Load weights into `model` in place: a flax `{"params",
+    "batch_stats"}` tree of numpy arrays goes through `load_flax_variables`,
+    anything else is a torch state dict."""
+    if isinstance(variables, Mapping) and "params" in variables:
+        load_flax_variables(model, variables)
+    else:
+        model.load_state_dict(variables)
     model.eval()
 
 

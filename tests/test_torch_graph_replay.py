@@ -1,15 +1,13 @@
 """The generator's CUDA graphs of the sources' forwards
-(`pseudo/generate.py`), on the CPU.  A CPU generator never captures.  With
-a stand-in for the CUDA graph, the bookkeeping: a key's first two batches
+(`pseudo/generate.py`, `ops/graphs.py`), on the CPU.  A CPU generator never
+captures.  With a stand-in for the CUDA graph
+(`tests/torch_graph_stand_in.py`), the bookkeeping: a key's first two batches
 run eagerly and the second captures right after, the kernel wrappers'
 launch counters count each kernel run once (what a capture counted is put
 back, and each replay adds it), `set_variables` drops that source's graphs
 alone, the pool's captures keep the sources' order, a capture finds the
 plan caches warm whatever ran before its batch, and a graph keeps the
 cached plans alive.  The card's own checks are `tests_card/`."""
-
-import sys
-import types
 
 import numpy as np
 import pytest
@@ -18,11 +16,13 @@ import torch
 from mspl_tpu_torch.data.loader import DataLoader
 from mspl_tpu_torch.data.transforms import normalize
 from mspl_tpu_torch.models.espnetv2 import ESPNetv2Segmentation
-from mspl_tpu_torch.ops import pyrpool, resize_x2
+from mspl_tpu_torch.ops import graphs, pyrpool, resize_x2
 from mspl_tpu_torch.ops.pseudo_cm import fused_pseudo_cm
-from mspl_tpu_torch.pseudo import generate
 from mspl_tpu_torch.pseudo.generate import (PseudoLabelGenerator,
                                             SourceModel, make_source)
+
+from tests.torch_graph_stand_in import (FailingGraph, StandInGraph, kernel,
+                                        take_graph_path)
 
 HW = (8, 12)
 T = 3  # target classes
@@ -38,30 +38,13 @@ def _two_threads():
     torch.set_num_threads(n)
 
 
-def _kernel(x):
-    """A kernel wrapper's stand-in: counts a launch as the port's do."""
-    _kernel.launches += 1
-    return x
-
-
-@pytest.fixture
-def counted(monkeypatch):
-    """`_kernel` as an entry of a loaded `mspl_tpu_torch.ops` module, where
-    the generator finds the wrappers that count their launches."""
-    mod = types.ModuleType("mspl_tpu_torch.ops._stand_in")
-    mod.kernel = _kernel
-    monkeypatch.setitem(sys.modules, mod.__name__, mod)
-    _kernel.launches = 0
-    return _kernel
-
-
 def _plan(h):
     """A cached device table as ③ looks one up: on a miss it is made on
     the host and copied to the device, which a CUDA capture refuses."""
     key = ("stand_in", h)
     hit = pyrpool._cached("stand_in", key)
     if hit is None:
-        if _StandInGraph.capturing:
+        if StandInGraph.capturing:
             raise RuntimeError("host-to-device copy while capturing")
         hit = pyrpool._keep("stand_in", key, (torch.arange(h),))
     return hit
@@ -85,7 +68,7 @@ class _Head(torch.nn.Module):
         _plan(x.shape[2])
         resize_x2.device_taps(x.shape[2], 2 * x.shape[2], x.device)
         for _ in range(self.launches):
-            x = _kernel(x)
+            x = kernel(x)
         return self.conv(x)
 
 
@@ -101,53 +84,13 @@ def _sources():
             for i, (c, n) in enumerate(zip(CLASSES, LAUNCHES))]
 
 
-class _StandInGraph:
-    """`generate._CudaGraph` on the CPU.  A capture runs the forward's
-    Python once, as a CUDA capture does (the wrappers count), and keeps its
-    output; a replay runs the recorded work again on the static input into
-    that output, without moving any counter, as a graph's kernels run with
-    no Python."""
-
-    pools = []
-    capturing = False
-
-    @staticmethod
-    def new_pool():
-        _StandInGraph.pools.append(object())
-        return _StandInGraph.pools[-1]
-
-    def __init__(self, pool):
-        self.pool = pool
-        self.fn = self.out = None
-
-    def capture(self, fn):
-        self.fn = fn
-        _StandInGraph.capturing = True
-        try:
-            self.out = fn()
-        finally:
-            _StandInGraph.capturing = False
-        return self.out
-
-    def replay(self):
-        counters = generate._launch_counters()
-        saved = [fn.launches for fn in counters]
-        out = self.fn()
-        for fn, n in zip(counters, saved):
-            fn.launches = n
-        self.out.copy_(out)
-
-
 @pytest.fixture
-def stand_in(monkeypatch, counted):
-    """The generator's graph path taken on the CPU, with `_StandInGraph`,
-    and empty plan caches of its own."""
-    monkeypatch.setattr(generate, "_graphable", lambda imgs: True)
-    monkeypatch.setattr(generate, "_CudaGraph", _StandInGraph)
+def stand_in(monkeypatch):
+    """The generator's graph path taken on the CPU, with the stand-in
+    graph, and empty plan caches of its own."""
     monkeypatch.setattr(pyrpool, "_plan_cache", {})
     monkeypatch.setattr(resize_x2, "_taps_cache", {})
-    _StandInGraph.pools.clear()
-    return counted
+    return take_graph_path(monkeypatch)
 
 
 def _batch(seed, n=4):
@@ -189,11 +132,11 @@ def test_second_batch_captures_and_counters_count_kernel_runs(stand_in):
                     (2 * n, n, n, 3 * per_batch),
                     (2 * n, n, 2 * n, 4 * per_batch)]
     # one pool for every graph; the logits are each graph's own output
-    graphs = gen._graphs[_key()]
-    assert sorted(graphs) == [0, 1, 2]
-    assert len({id(r.graph.pool) for r in graphs.values()}) == 1
-    assert [r.launches[0][1] for r in graphs.values()] == list(LAUNCHES)
-    assert all(r.launches[0][0] is _kernel for r in graphs.values())
+    replays = gen._graphs[_key()]
+    assert sorted(replays) == [0, 1, 2]
+    assert len({id(r.graph.pool) for r in replays.values()}) == 1
+    assert [r.launches[0][1] for r in replays.values()] == list(LAUNCHES)
+    assert all(r.launches[0][0] is kernel for r in replays.values())
 
 
 def test_all_sources_read_one_static_input(stand_in):
@@ -235,12 +178,12 @@ def test_set_variables_drops_only_that_sources_graphs(stand_in):
     gen = PseudoLabelGenerator(sources, device="cpu")
     for b in range(3):
         gen.batch_pass(_batch(b))
-    graphs = gen._graphs[_key()]
-    kept = {i: graphs[i] for i in (0, 2)}
+    replays = gen._graphs[_key()]
+    kept = {i: replays[i] for i in (0, 2)}
     new = _Head(CLASSES[1], LAUNCHES[1], seed=11).state_dict()
     gen.set_variables(1, new)
-    assert sorted(graphs) == [0, 2]
-    assert all(graphs[i] is kept[i] for i in (0, 2))
+    assert sorted(replays) == [0, 2]
+    assert all(replays[i] is kept[i] for i in (0, 2))
     before = (gen.eager_forwards, gen.graph_captures, gen.graph_replays)
     gen.batch_pass(_batch(3))  # source 1 runs eagerly, the others replay
     assert (gen.eager_forwards, gen.graph_captures, gen.graph_replays) == (
@@ -251,7 +194,7 @@ def test_set_variables_drops_only_that_sources_graphs(stand_in):
     # the pool's captures keep the sources' order
     assert (gen.eager_forwards, gen.graph_captures, gen.graph_replays) == (
         before[0] + 3, before[1] + 2, before[2] + 3)
-    assert graphs[0] is kept[0] and graphs[2] is not kept[2]
+    assert replays[0] is kept[0] and replays[2] is not kept[2]
     imgs = _batch(5)
     lab, conf = gen.batch_pass(imgs)
     assert gen.graph_replays == before[2] + 6
@@ -263,17 +206,12 @@ def test_set_variables_drops_only_that_sources_graphs(stand_in):
     assert torch.equal(lab, want_lab) and torch.equal(conf, want_conf)
 
 
-def test_capture_undoes_its_counts_even_when_it_fails(stand_in):
+def test_capture_undoes_its_counts_even_when_it_fails(stand_in,
+                                                      monkeypatch):
     sources = _sources()
-
-    class _Broken(_StandInGraph):
-        def capture(self, fn):
-            fn()
-            raise RuntimeError("capture failed")
-
     gen = PseudoLabelGenerator(sources, device="cpu")
     gen.batch_pass(_batch(0))
-    generate._CudaGraph = _Broken
+    monkeypatch.setattr(graphs, "CudaGraph", FailingGraph)
     with pytest.raises(RuntimeError, match="capture failed"):
         gen.batch_pass(_batch(1))
     # both batches' eager forwards of source 0, none of the capture's

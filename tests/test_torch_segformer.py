@@ -5,8 +5,8 @@ train step's loss, every gradient and one SGD step; drop-path and head
 dropout; `init_model`'s laws against the reference's `weight_law`; its
 flax-layout checkpoints saved and resumed bit for bit; a self-training
 round with a SegFormer target, its round-1 forward captured by the
-generator; the command line's `train --model segformer`; and the
-espnetv2-only flags refusing it."""
+generator and its fine-tunes' steps by the train step; the command line's
+`train --model segformer`; and the espnetv2-only flags refusing it."""
 
 import math
 import os
@@ -39,7 +39,7 @@ from mspl_tpu_torch.utils.flax_bridge import (flax_variables,
 from mspl_tpu_torch.utils.registry import MODEL_NAMES
 
 from tests.test_torch_cli import _make_png_dataset
-from tests.test_torch_graph_replay import _StandInGraph
+from tests.torch_graph_stand_in import StandInGraph, take_graph_path
 
 TINY = dict(embed_dims=(16, 32, 40, 64), num_heads=(1, 2, 5, 8),
             depths=(1, 1, 2, 1), decoder_dim=32)
@@ -296,7 +296,9 @@ class _Target:
 def test_self_training_round_with_a_segformer_target(monkeypatch):
     """Two rounds: round 0 on the sources alone, round 1 with the tuned
     SegFormer in the ensemble, whose forward the generator captures on its
-    second batch and replays after (the CUDA graph a stand-in here)."""
+    second batch and replays after, while the fine-tunes capture and
+    replay the train step's forward and backward (the CUDA graph a
+    stand-in here)."""
     made = []
 
     class Recording(generate.PseudoLabelGenerator):
@@ -304,8 +306,7 @@ def test_self_training_round_with_a_segformer_target(monkeypatch):
             super().__init__(*a, **kw)
             made.append(self)
 
-    monkeypatch.setattr(generate, "_graphable", lambda imgs: True)
-    monkeypatch.setattr(generate, "_CudaGraph", _StandInGraph)
+    take_graph_path(monkeypatch)
     monkeypatch.setattr(self_training, "PseudoLabelGenerator", Recording)
     torch.manual_seed(0)
     sources = [make_source(name, ESPNetv2Segmentation(c, s=0.5,
@@ -328,6 +329,7 @@ def test_self_training_round_with_a_segformer_target(monkeypatch):
     assert (tgt.graph_captures, tgt.graph_replays) == (3, 3)
     assert sorted(tgt._graphs[((2, 3, *HW), torch.float32, CPU)]) == [0, 1,
                                                                         2]
+    assert any(g.grad_call is not None for g in StandInGraph.made)
     after = res["model"].state_dict()
     assert any(not torch.equal(before[k], after[k]) for k in before)
 

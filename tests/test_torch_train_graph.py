@@ -1,6 +1,7 @@
 """The train step's CUDA graphs of the model's forward and backward
-(`engine/train.py`), on the CPU.  A CPU step and a step under a mesh never
-capture.  With a stand-in for the CUDA graph, the bookkeeping: a key's
+(`engine/train.py`, `ops/graphs.py`), on the CPU.  A CPU step and a step
+under a mesh never capture.  With a stand-in for the CUDA graph
+(`tests/torch_graph_stand_in.py`), the bookkeeping: a key's
 first step runs eagerly, its second captures and replays, its third
 replays; another batch shape, or a batch with "valid", warms up on its
 own; a parameter whose storage is replaced drops the graphs; the kernel
@@ -9,9 +10,6 @@ fails; the loss and the optimizer step run eagerly every step; the replay
 span lies inside the forward span; and the losses, parameters, momentum
 buffers and BatchNorm statistics after the steps are the eager path's.
 The card's own checks are `tests_card/test_torch_train_graph_card.py`."""
-
-import sys
-import types
 
 import numpy as np
 import pytest
@@ -23,8 +21,11 @@ from mspl_tpu_torch.engine import train
 from mspl_tpu_torch.engine.schedules import build_schedule
 from mspl_tpu_torch.engine.train import create_train_state, make_train_step
 from mspl_tpu_torch.layers.conv_blocks import BatchNorm
+from mspl_tpu_torch.ops import graphs
 from mspl_tpu_torch.parallel.mesh import make_mesh
-from mspl_tpu_torch.pseudo.generate import _launch_counters
+
+from tests.torch_graph_stand_in import (FailingGraph, StandInGraph, kernel,
+                                        take_graph_path)
 
 HW, CROP = (12, 16), (8, 12)
 CLASSES = 3
@@ -38,23 +39,17 @@ def _two_threads():
     torch.set_num_threads(n)
 
 
-def _kernel(x):
-    """A kernel wrapper's stand-in: counts a launch as the port's do."""
-    _kernel.launches += 1
-    return x.clone()
-
-
 class _Counted(torch.autograd.Function):
     """The identity, launching the stand-in kernel once in its forward and
     once in its backward, as a kernel with a backward of its own would."""
 
     @staticmethod
     def forward(ctx, x):
-        return _kernel(x)
+        return kernel(x)
 
     @staticmethod
     def backward(ctx, g):
-        return _kernel(g)
+        return kernel(g)
 
 
 class _Net(nn.Module):
@@ -76,88 +71,9 @@ class _Net(nn.Module):
 
 
 @pytest.fixture
-def counted(monkeypatch):
-    """`_kernel` as an entry of a loaded `mspl_tpu_torch.ops` module, where
-    the step finds the wrappers that count their launches."""
-    mod = types.ModuleType("mspl_tpu_torch.ops._train_stand_in")
-    mod.kernel = _kernel
-    monkeypatch.setitem(sys.modules, mod.__name__, mod)
-    _kernel.launches = 0
-    return _kernel
-
-
-class _StandInGraph:
-    """`generate._CudaGraph` as the train step uses it, on the CPU.  A
-    capture runs the function's Python once, as a CUDA capture does (the
-    wrappers count), then puts the model's buffers back, since a CUDA
-    capture runs no kernel; a capture that calls `torch.autograd.grad` is
-    a backward graph and records that call.  A replay runs the recorded
-    work again without moving any counter: a forward graph's into the
-    output it captured, keeping its fresh autograd graph for the backward
-    graph's replay, which differentiates it into the gradients it
-    captured."""
-
-    made = []
-    model = None  # whose state a capture leaves as it found it
-
-    @staticmethod
-    def new_pool():
-        return object()
-
-    def __init__(self, pool):
-        self.pool = pool
-        self.fn = self.out = self.grad_call = self.live = None
-        _StandInGraph.made.append(self)
-
-    def capture(self, fn):
-        state = [b.clone() for b in self.model.buffers()]
-        real = torch.autograd.grad
-
-        def recording(outputs, inputs, grad_outputs=None, **kw):
-            self.grad_call = (outputs, inputs, grad_outputs)
-            return real(outputs, inputs, grad_outputs, **kw)
-
-        self.fn = fn
-        try:
-            with pytest.MonkeyPatch.context() as mp:
-                mp.setattr(torch.autograd, "grad", recording)
-                self.out = fn()
-        finally:
-            with torch.no_grad():
-                for b, v in zip(self.model.buffers(), state):
-                    b.copy_(v)
-        return self.out
-
-    def replay(self):
-        counters = _launch_counters()
-        saved = [fn.launches for fn in counters]
-        try:
-            if self.grad_call is None:
-                with torch.enable_grad():
-                    self.live = self.fn()
-                with torch.no_grad():
-                    self.out.copy_(self.live)
-                return
-            outputs, inputs, grad_outputs = self.grad_call
-            fwd = next(g for g in _StandInGraph.made if g.out is outputs)
-            grads = torch.autograd.grad(fwd.live, inputs, grad_outputs,
-                                        allow_unused=True)
-            with torch.no_grad():
-                for o, g in zip(self.out, grads):
-                    if o is not None:
-                        o.copy_(g)
-        finally:
-            for fn, n in zip(counters, saved):
-                fn.launches = n
-
-
-@pytest.fixture
-def stand_in(monkeypatch, counted):
-    """The step's graph path taken on the CPU, with `_StandInGraph`."""
-    monkeypatch.setattr(train, "_graphable", lambda imgs: True)
-    monkeypatch.setattr(train, "_CudaGraph", _StandInGraph)
-    _StandInGraph.made.clear()
-    return counted
+def stand_in(monkeypatch):
+    """The step's graph path taken on the CPU, with the stand-in graph."""
+    return take_graph_path(monkeypatch)
 
 
 def _setup(seed=0, mesh=None):
@@ -168,7 +84,6 @@ def _setup(seed=0, mesh=None):
     step = make_train_step(model, crop_hw=CROP, scale_range=(0.8, 1.25),
                            class_weights=[1.0, 2.0, 0.5], reg_mode="kld",
                            reg_weight=0.1, device="cpu", mesh=mesh)
-    _StandInGraph.model = model
     return model, state, step
 
 
@@ -206,7 +121,7 @@ def _result(model, state, losses):
 def _eager_twin(batches):
     """The same steps from the same weights with every forward eager."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(train, "_graphable", lambda imgs: False)
+        mp.setattr(graphs, "graphable", lambda x: False)
         model, state, step = _setup()
         losses = _run(state, step, batches)
     assert _counts(step) == (len(batches), 0, 0)
@@ -222,7 +137,7 @@ def _same(got, want):
     assert all(torch.equal(a, b) for a, b in zip(ba, bb))
 
 
-def test_a_cpu_step_never_captures(counted):
+def test_a_cpu_step_never_captures():
     model, state, step = _setup()
     _run(state, step, [_batch(i) for i in range(3)])
     assert _counts(step) == (3, 0, 0)
@@ -232,7 +147,7 @@ def test_a_step_with_a_mesh_never_captures(stand_in):
     model, state, step = _setup(mesh=make_mesh())
     _run(state, step, [_batch(i) for i in range(3)])
     assert _counts(step) == (3, 0, 0)
-    assert not _StandInGraph.made
+    assert not StandInGraph.made
 
 
 def test_first_step_eager_second_captures_third_replays(stand_in):
@@ -244,8 +159,8 @@ def test_first_step_eager_second_captures_third_replays(stand_in):
         bn.append(model.bn.running_mean.clone())
     assert seen == [(1, 0, 0), (1, 1, 1), (1, 1, 2), (1, 1, 3), (1, 1, 4)]
     # one forward and one backward graph, in one pool
-    assert len(_StandInGraph.made) == 2
-    assert len({id(g.pool) for g in _StandInGraph.made}) == 1
+    assert len(StandInGraph.made) == 2
+    assert len({id(g.pool) for g in StandInGraph.made}) == 1
     # the statistics moved once a step: the capture left them as they were
     assert all(not torch.equal(a, b) for a, b in zip(bn, bn[1:]))
 
@@ -269,7 +184,7 @@ def test_another_shape_or_valid_warms_up_on_its_own(stand_in):
     assert _counts(step) == (3, 2, 2)
     _run(state, step, [_batch(5, valid=[True, True]), _batch(6)])
     assert _counts(step) == (3, 3, 4)
-    assert len(_StandInGraph.made) == 6
+    assert len(StandInGraph.made) == 6
 
 
 def test_a_replaced_storage_drops_the_graphs(stand_in):
@@ -284,7 +199,7 @@ def test_a_replaced_storage_drops_the_graphs(stand_in):
     assert _counts(step) == (2, 2, 3)
     _run(state, step, batches[5:])
     assert _counts(step) == (2, 2, 4)
-    assert len(_StandInGraph.made) == 4
+    assert len(StandInGraph.made) == 4
 
 
 def test_launch_counters_count_each_kernel_run_once(stand_in):
@@ -297,14 +212,9 @@ def test_launch_counters_count_each_kernel_run_once(stand_in):
 
 
 def test_a_failed_capture_undoes_its_counts(stand_in, monkeypatch):
-    class _Broken(_StandInGraph):
-        def capture(self, fn):
-            super().capture(fn)
-            raise RuntimeError("capture failed")
-
     model, state, step = _setup()
     _run(state, step, [_batch(0)])
-    monkeypatch.setattr(train, "_CudaGraph", _Broken)
+    monkeypatch.setattr(graphs, "CudaGraph", FailingGraph)
     with pytest.raises(RuntimeError, match="capture failed"):
         _run(state, step, [_batch(1)])
     # the eager step's forward and backward, none of the capture's
@@ -365,4 +275,4 @@ def test_a_remat_step_never_captures(stand_in):
     step = make_train_step(model, crop_hw=CROP, remat=True, device="cpu")
     _run(state, step, [_batch(i) for i in range(3)])
     assert _counts(step) == (3, 0, 0)
-    assert not _StandInGraph.made
+    assert not StandInGraph.made

@@ -11,8 +11,7 @@ import pytest
 import torch
 
 from mspl_tpu_torch.models.factory import build_segmentation_model, init_model
-from mspl_tpu_torch.ops import pyrpool, resize_x2
-from mspl_tpu_torch.pseudo import generate
+from mspl_tpu_torch.ops import graphs, pyrpool, resize_x2
 from mspl_tpu_torch.pseudo.generate import PseudoLabelGenerator, make_source
 
 HW, BATCH = (256, 480), 8
@@ -62,7 +61,7 @@ def _run(gen, batches):
 
 def _eager(sources, batches, monkeypatch):
     with monkeypatch.context() as mp:
-        mp.setattr(generate, "_graphable", lambda imgs: False)
+        mp.setattr(graphs, "graphable", lambda x: False)
         gen = PseudoLabelGenerator(sources, device="cuda")
         out = _run(gen, batches)
     assert gen.graph_captures == gen.graph_replays == 0
@@ -130,7 +129,7 @@ def test_launch_counters_count_kernel_runs(card, ensemble, monkeypatch):
     batches = _batches(4, seed=4)
 
     def counts(run):
-        counters = generate._launch_counters()
+        counters = graphs.launch_counters()
         for fn in counters:
             fn.launches = 0
         run()

@@ -18,7 +18,7 @@ from h100_bench.reference.pipeline import build_model
 from h100_bench.weights import make_state, shapes_of
 from mspl_tpu_torch.models import segformer
 from mspl_tpu_torch.models.factory import build_segmentation_model, init_model
-from mspl_tpu_torch.pseudo import generate
+from mspl_tpu_torch.ops import graphs
 from mspl_tpu_torch.pseudo.generate import PseudoLabelGenerator, make_source
 
 HW, BATCH, CLASSES = (256, 480), 8, 3
@@ -148,7 +148,7 @@ def test_round1_sweep_replays_the_segformer_target(card, monkeypatch):
     for mode in ("eager", "graphs"):
         with monkeypatch.context() as mp:
             if mode == "eager":
-                mp.setattr(generate, "_graphable", lambda imgs: False)
+                mp.setattr(graphs, "graphable", lambda x: False)
             calls = sdpa_calls(mp)
             sources = _sources(target)
             gen = PseudoLabelGenerator(sources, device="cuda")
@@ -159,10 +159,10 @@ def test_round1_sweep_replays_the_segformer_target(card, monkeypatch):
                       sum(calls.values()))
         print(f"{mode}: captures {gen.graph_captures}, replays "
               f"{gen.graph_replays}, target attention calls {dict(calls)}")
-    eager, graphs = runs["eager"], runs["graphs"]
+    eager, replayed = runs["eager"], runs["graphs"]
     assert eager[1:] == (0, 0, 4 * BLOCKS)
     # two eager batches (the second captures), two replayed, each source
-    assert graphs[1:] == (2, 4, 2 * BLOCKS)
-    for (lab, conf), (lab_e, conf_e) in zip(graphs[0], eager[0]):
+    assert replayed[1:] == (2, 4, 2 * BLOCKS)
+    for (lab, conf), (lab_e, conf_e) in zip(replayed[0], eager[0]):
         assert torch.equal(lab, lab_e)
         assert float((conf - conf_e).abs().max()) <= CONF_TOL

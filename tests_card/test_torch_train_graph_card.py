@@ -18,11 +18,11 @@ import torch
 from h100_bench import common, program
 from h100_bench.drivers.finetune import (gaps, label_histogram, leaf_gaps,
                                          make_pool, target_state)
-from mspl_tpu_torch.engine import train
 from mspl_tpu_torch.engine.losses import compute_class_weights
 from mspl_tpu_torch.engine.schedules import build_schedule
 from mspl_tpu_torch.engine.train import (create_train_state, make_train_step,
                                          step_generator)
+from mspl_tpu_torch.ops import graphs
 
 CELLS = ("espnetv2_s2.finetune_b8", "deeplabv3_r50.finetune_b8",
          "segformer_b5.finetune_b8")
@@ -43,7 +43,7 @@ def _deterministic_f32():
      torch.backends.cudnn.deterministic) = flags
 
 
-def _steps(cell, card, graphs: bool, bn_groups: int = 1):
+def _steps(cell, card, replayed: bool, bn_groups: int = 1):
     """STEPS train steps of the cell's model from the seed's weights on
     the seed's batches: {"losses", "buffers" (after the first step),
     "params", "init", "stats" (BatchNorm running statistics), "counts",
@@ -70,8 +70,8 @@ def _steps(cell, card, graphs: bool, bn_groups: int = 1):
     init = {n: p.detach().clone() for n, p in model.named_parameters()}
     losses, buffers = [], {}
     with pytest.MonkeyPatch.context() as mp:
-        if not graphs:
-            mp.setattr(train, "_graphable", lambda imgs: False)
+        if not replayed:
+            mp.setattr(graphs, "graphable", lambda x: False)
         for i in range(STEPS):
             rows = slice(i * tr["batch"], (i + 1) * tr["batch"])
             state, m = step(state, {"image": images[rows],
@@ -124,14 +124,14 @@ def _check(cell, got, want):
 @pytest.mark.parametrize("name", CELLS)
 def test_replayed_steps_match_eager_steps(card, name):
     cell = common.load_cell(name)
-    want = _steps(cell, card, graphs=False)
-    got = _steps(cell, card, graphs=True)
+    want = _steps(cell, card, replayed=False)
+    got = _steps(cell, card, replayed=True)
     _check(cell, got, want)
 
 
 @pytest.mark.card
 def test_replayed_ghost_batch_steps_match_eager_steps(card):
     cell = common.load_cell("espnetv2_s2.finetune_b8")
-    want = _steps(cell, card, graphs=False, bn_groups=2)
-    got = _steps(cell, card, graphs=True, bn_groups=2)
+    want = _steps(cell, card, replayed=False, bn_groups=2)
+    got = _steps(cell, card, replayed=True, bn_groups=2)
     _check(cell, got, want)
